@@ -4,7 +4,7 @@ Synthesizes a realistic basin ON DISK — 1M-link parameter CSV in the
 reference schema, ERA5-shaped pr/t2m forcing grids, stream->grid lookup —
 then drives tiger_tpu.run.run() end to end (load -> remap -> solve -> NetCDF
 write) and prints one JSON line with the per-phase wall seconds the CLI's
-Metrics already collects.  This is the TPU-native analog of the reference's
+Metrics already collects.  This is the analog of the reference's
 full `mpirun ./rk45_solver` workflow (src/main.cpp:255-828) at the "millions
 of systems" scale it aspires to; the reference's only recorded metric is the
 dense-write timer (main.cpp:809-823), reported here as `write_output`.

@@ -41,7 +41,7 @@ def main() -> None:
     p.add_argument("--days", type=float, default=0.5)
     p.add_argument("--cpu", action="store_true")
     p.add_argument("--backend", default="xla", choices=["xla", "pallas"],
-                   help="pallas = fused kernel per shard (TPU)")
+                   help="pallas = fused GPU kernel per shard")
     args = p.parse_args()
 
     if args.cpu:

@@ -11,8 +11,7 @@ This is the scale the reference aspires to but cannot reach with its fixed
 2-day in-memory window (src/main.cpp:525, loadTimeChunk never wired):
 a year at 131k systems is ~4.3 GB of forcing and ~1 GB of dense output.
 
-Prints one JSON line; not part of the driver bench (bench.py), recorded in
-benchmarks/year_run_tpu.json.
+Prints one JSON line; not part of bench.py.
 
 Usage: python benchmarks/year_run.py [--systems 131072] [--days 365]
                                      [--chunk-days 2] [--cpu] [--keep]

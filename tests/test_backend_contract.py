@@ -1,9 +1,7 @@
 """Cross-backend contracts: identical inputs must behave identically on the
-vmap (XLA), fused-kernel (Pallas, windowed and unwindowed), and sharded
-backends — same accept/reject of inputs, same error behavior, same stats
-shapes.  VERDICT r02 found the duplicate-query rule depended on the VMEM
-planner's windowing decision and radau_stats leaked bucket padding; these
-tests pin the unified contracts.
+vmap (XLA), fused-kernel (Pallas) and sharded backends — same accept/reject
+of inputs, same error behavior, same stats shapes — and solve() picks the
+kernels by the observed platform and input only.
 """
 
 import numpy as np
@@ -11,7 +9,6 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tiger_tpu.kernels import rk45_pallas as kp
 from tiger_tpu.kernels.rk45_pallas import rk45_solve_pallas
 from tiger_tpu.models import DummyModel
 from tiger_tpu.solver import SolverConfig, rk45_solve
@@ -33,21 +30,18 @@ QT_DUP = jnp.asarray(
 )
 
 
-def _dense_all(backend_name, y0, h0, monkeypatch=None):
+def _dense_all(backend_name, y0, h0):
     if backend_name == "vmap":
         return rk45_solve(DummyModel(), y0, 0.0, 5.0, QT_DUP, h0=h0, config=CFG)
-    if backend_name == "pallas-windowed":
-        # Shrink the VMEM budget so the planner windows these 8 queries.
-        monkeypatch.setattr(kp, "_VMEM_BUDGET", 438_000)
     return rk45_solve_pallas(
         DummyModel(), y0, 0.0, 5.0, QT_DUP, h0=h0, config=CFG, interpret=True
     )
 
 
-@pytest.mark.parametrize("backend", ["vmap", "pallas", "pallas-windowed"])
-def test_duplicate_queries_accepted_everywhere(backend, monkeypatch):
+@pytest.mark.parametrize("backend", ["vmap", "pallas"])
+def test_duplicate_queries_accepted_everywhere(backend):
     y0, h0 = _batch()
-    res = _dense_all(backend, y0, h0, monkeypatch)
+    res = _dense_all(backend, y0, h0)
     dense = np.asarray(res.dense)
     qt = np.asarray(QT_DUP)
     # Duplicate rows are bit-identical to their first copy.
@@ -77,8 +71,8 @@ def test_duplicate_queries_accepted_on_sharded_backend():
             np.testing.assert_array_equal(dense[:, i], dense[:, i - 1])
 
 
-@pytest.mark.parametrize("backend", ["vmap", "pallas", "pallas-windowed"])
-def test_unsorted_queries_rejected_everywhere(backend, monkeypatch):
+@pytest.mark.parametrize("backend", ["vmap", "pallas"])
+def test_unsorted_queries_rejected_everywhere(backend):
     y0, h0 = _batch(4)
     bad = jnp.asarray([1.0, 0.5, 2.0], jnp.float32)
     with pytest.raises(ValueError, match="sorted ascending"):
@@ -86,8 +80,6 @@ def test_unsorted_queries_rejected_everywhere(backend, monkeypatch):
             # api.solve front-ends the vmap path's validation.
             solve(DummyModel(), y0, 0.0, 5.0, bad, config=CFG, backend="xla")
         else:
-            if backend == "pallas-windowed":
-                monkeypatch.setattr(kp, "_VMEM_BUDGET", 438_000)
             rk45_solve_pallas(
                 DummyModel(), y0, 0.0, 5.0, bad, h0=h0, config=CFG, interpret=True
             )
@@ -106,10 +98,11 @@ def _mixed_batch():
 
 def test_radau_stats_full_batch_shaped(monkeypatch):
     """radau_stats is [S]-shaped with zeros on never-stiff lanes — consumers
-    need no knowledge of bucket padding (VERDICT r02 weak #6)."""
-    monkeypatch.setenv("TT_FORCE_DEVICE_RUNG", "1")
+    need no knowledge of bucket padding."""
+    monkeypatch.setenv("TT_NO_SPECULATIVE_RUNG", "1")
     model, y0, params, cfg = _mixed_batch()
-    res = solve(model, y0, 0.0, 50.0, None, params, config=cfg)
+    res = solve(model, y0, 0.0, 50.0, None, params, config=cfg,
+                backend="pallas", interpret=True)
     assert res.n_stiff == 2
     st = res.radau_stats
     s_count = y0.shape[0]
@@ -122,14 +115,67 @@ def test_radau_stats_full_batch_shaped(monkeypatch):
 
 
 def test_radau_stats_full_batch_shaped_cpu_pipeline():
-    """Same contract when the stiff pass runs the CPU f64 pipeline (no
+    """Same contract when the stiff pass runs the host f64 pipeline (no
     device rung): per-lane counters for the lanes Radau actually stepped."""
     model, y0, params, cfg = _mixed_batch()
     res = solve(model, y0, 0.0, 50.0, None, params, config=cfg, backend="xla")
     assert res.n_stiff == 2
+    assert res.n_host == 2
     stiff = np.asarray(res.stiff)
     if res.radau_stats is None:
         pytest.skip("f64 RK retry resolved all flagged lanes before Radau")
     st = res.radau_stats
     assert np.asarray(st.n_attempts).shape == (y0.shape[0],)
     assert (np.asarray(st.n_attempts)[~stiff] == 0).all()
+
+
+class _NoTuple:
+    """A model with only the stacked rhs: the kernels cannot trace it."""
+
+    N_EQ = 5
+    UID = 0
+
+
+@pytest.mark.parametrize(
+    "backend,platform,dtype,model,interpret,want",
+    [
+        ("auto", "gpu", jnp.float32, DummyModel(), False, True),
+        ("auto", "cpu", jnp.float32, DummyModel(), False, False),
+        ("auto", "gpu", jnp.float64, DummyModel(), False, False),
+        ("auto", "gpu", jnp.float32, _NoTuple(), False, False),
+        ("xla", "gpu", jnp.float32, DummyModel(), False, False),
+        ("pallas", "gpu", jnp.float32, DummyModel(), False, True),
+        ("pallas", "cpu", jnp.float32, DummyModel(), True, True),
+        ("auto", "cpu", jnp.float32, DummyModel(), True, False),
+    ],
+    ids=["auto-gpu", "auto-cpu", "auto-gpu-f64", "auto-gpu-no-rhs_tuple",
+         "xla-gpu", "pallas-gpu", "pallas-cpu-interpret", "auto-cpu-interpret"],
+)
+def test_kernel_selection(backend, platform, dtype, model, interpret, want):
+    from tiger_tpu.solver.api import select_kernels
+
+    assert select_kernels(backend, platform, dtype, model, interpret) is want
+
+
+@pytest.mark.parametrize("platform,dtype", [("cpu", jnp.float32), ("gpu", jnp.float64)])
+def test_pallas_backend_refuses_what_the_kernels_cannot_run(platform, dtype):
+    from tiger_tpu.solver.api import select_kernels
+
+    with pytest.raises(ValueError, match=platform):
+        select_kernels("pallas", platform, dtype, DummyModel(), False)
+
+
+def test_solve_on_cpu_takes_the_vmap_path(monkeypatch):
+    """On a CPU device 'auto' never enters the kernel modules, and an
+    explicit 'pallas' without interpret raises naming the platform."""
+    import tiger_tpu.kernels.rk45_pallas as kp
+
+    def boom(*a, **k):
+        raise AssertionError("kernel called on the CPU")
+
+    monkeypatch.setattr(kp, "rk45_solve_pallas", boom)
+    y0, _ = _batch(4)
+    res = solve(DummyModel(), y0, 0.0, 5.0, QT_DUP, config=CFG)
+    assert res.y_final.shape == (4, 5)
+    with pytest.raises(ValueError, match="'cpu'"):
+        solve(DummyModel(), y0, 0.0, 5.0, QT_DUP, config=CFG, backend="pallas")

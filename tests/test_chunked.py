@@ -224,6 +224,7 @@ def test_crash_resume_bitwise(tmp_path, monkeypatch):
     import h5py
 
     from tests.test_cli import make_scenario
+    from tiger_tpu import checkpoint as ckpt
     from tiger_tpu import chunked as chunked_mod
     from tiger_tpu.config import load_config
     from tiger_tpu.run import run
@@ -261,8 +262,7 @@ def test_crash_resume_bitwise(tmp_path, monkeypatch):
 
     state_path = tmp_path / "crashed" / "state_basin_rank_0.nc"
     assert state_path.exists()
-    with h5py.File(state_path) as f:
-        assert f.attrs["sim_time_minutes"] == 1440.0
+    assert ckpt.load_state(str(state_path))[2] == 1440.0
 
     # Resume from the checkpoint into the SAME output files.
     run(
@@ -270,8 +270,12 @@ def test_crash_resume_bitwise(tmp_path, monkeypatch):
         use_mesh=False,
     )
 
+    np.testing.assert_array_equal(
+        ckpt.load_state(str(tmp_path / "ref" / "state_basin_rank_0.nc"))[0],
+        ckpt.load_state(str(state_path))[0],
+    )
     for name in ("dense_basin_rank_0.nc", "discharge_basin_rank_0.nc",
-                 "final_basin_rank_0.nc", "state_basin_rank_0.nc"):
+                 "final_basin_rank_0.nc"):
         with h5py.File(tmp_path / "ref" / name) as fa, \
                 h5py.File(tmp_path / "crashed" / name) as fb:
             key = [k for k in ("outputs", "discharge") if k in fa][0]

@@ -157,9 +157,10 @@ def test_hot_restart_equivalence(scenario, tmp_path):
     cfg_b.output.path = str(tmp_path / "b")
     b = run(cfg_b, use_mesh=False)
 
-    with h5py.File(a["state_path"]) as f:
-        day1_state = np.asarray(f["outputs"])
-        assert f.attrs["sim_time_minutes"] == 1440.0
+    from tiger_tpu.checkpoint import load_state
+
+    day1_state, _, t_ck = load_state(a["state_path"])
+    assert t_ck == 1440.0
     with h5py.File(b["dense_path"]) as f:
         # Hot start: t=0 dense row equals day-1 final state.
         np.testing.assert_allclose(np.asarray(f["outputs"])[:, 0, :], day1_state)
@@ -218,9 +219,11 @@ def test_cli_chunked_streaming(scenario, tmp_path):
             )
 
     # Hot-restart state from a chunked run equals its final state.
-    with h5py.File(os.path.join(cfg.output.path, "state_basin_rank_0.nc")) as f, \
-         h5py.File(os.path.join(cfg.output.path, "final_basin_rank_0.nc")) as g:
-        np.testing.assert_allclose(np.asarray(f["outputs"]), np.asarray(g["outputs"]))
+    from tiger_tpu.checkpoint import load_state
+
+    y_state, _, _ = load_state(os.path.join(cfg.output.path, "state_basin_rank_0.nc"))
+    with h5py.File(os.path.join(cfg.output.path, "final_basin_rank_0.nc")) as g:
+        np.testing.assert_allclose(y_state, np.asarray(g["outputs"]))
 
     # i16 packing cannot stream window-by-window: refused, not silently wrong.
     cfg.output.precision = "i16"

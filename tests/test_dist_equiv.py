@@ -127,10 +127,34 @@ def test_sharded_pallas_interpret_close_to_single_device():
     )
     shd = rk45_solve_sharded(
         Model204(), y0, 0.0, 1440.0, qt, params, forc, h0=h0, config=cfg,
-        mesh=_mesh(), backend="pallas",
+        mesh=_mesh(), backend="pallas", interpret=True,
     )
     mask = ~(np.asarray(ref.stiff) | np.asarray(shd.stiff))
     np.testing.assert_allclose(
         np.asarray(shd.y_final)[mask], np.asarray(ref.y_final)[mask],
         rtol=1e-5, atol=1e-7,
     )
+
+
+def test_sharded_kernels_keep_the_stiff_rung_on_device():
+    """Mesh + kernels + flagged lanes: the rung runs on one device and its
+    results merge back into the mesh-sharded outputs (the merge needs them
+    replicated onto the mesh), with no lane left to the host pipeline."""
+    from tests.test_solve_device_rung import StiffMix
+
+    s = 16
+    lam = np.full(s, -0.1, np.float32)
+    lam[[2, 9]] = -1e6
+    y0 = jnp.ones((s, 5), jnp.float32)
+    params = {"lam": jnp.asarray(lam)}
+    qt = jnp.asarray([25.0, 50.0], jnp.float32)
+    cfg = SolverConfig(rtol=1e-5, atol=1e-8)
+    kw = dict(params=params, config=cfg, backend="pallas", interpret=True)
+    shd = solve(StiffMix(), y0, 0.0, 50.0, qt, mesh=_mesh(), **kw)
+    one = solve(StiffMix(), y0, 0.0, 50.0, qt, **kw)
+    assert shd.n_stiff == one.n_stiff == 2
+    assert shd.n_host == 0 and not np.asarray(shd.failed).any()
+    np.testing.assert_allclose(np.asarray(shd.y_final), np.asarray(one.y_final),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(np.asarray(shd.dense), np.asarray(one.dense),
+                               rtol=1e-6, atol=1e-7)

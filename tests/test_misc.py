@@ -3,6 +3,7 @@
 import os
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from tests.test_model204 import NB_PARAMS
@@ -90,55 +91,68 @@ def test_reference_parity_preset():
     np.testing.assert_allclose(np.asarray(h0), 1e-6)
 
 
-def test_bench_baseline_read_write_roundtrip(tmp_path):
-    # Per-solver baseline records (rk45 + radau) with legacy-format migration
-    # — tests the CODE paths bench.py uses, not just a committed file.
-    import json
+@pytest.mark.parametrize("env_set", [True, False])
+def test_enable_compile_cache(tmp_path, monkeypatch, env_set):
+    """JAX_COMPILATION_CACHE_DIR, when set, is left to JAX; otherwise the
+    cache goes to the fixed, git-ignored .jax_cache of the checkout."""
+    import pathlib
 
-    import bench
-
-    path = str(tmp_path / "b.json")
-    assert bench.read_baseline(path, "rk45") is None
-    # Legacy flat record reads as the rk45 entry and migrates on write.
-    (tmp_path / "b.json").write_text(json.dumps({"value": 5e8, "unit": "x"}))
-    assert bench.read_baseline(path, "rk45") == 5e8
-    assert bench.read_baseline(path, "radau") is None
-    bench.write_baseline(path, "radau", {"value": 1.5e7})
-    assert bench.read_baseline(path, "rk45") == 5e8
-    assert bench.read_baseline(path, "radau") == 1.5e7
-    bench.write_baseline(path, "rk45", {"value": 6e8})
-    assert bench.read_baseline(path, "rk45") == 6e8
-    assert bench.read_baseline(path, "radau") == 1.5e7
-
-
-def test_bench_baseline_record_sane():
-    # The committed record must stay parseable and plausible; the driver
-    # compares its round-end run against it.
-    import json, pathlib
-
-    import bench
-
-    rec = json.loads(pathlib.Path("bench_baseline.json").read_text())
-    rk = rec if "value" in rec else rec["rk45"]
-    assert rk["unit"] == "system-steps/s"
-    assert rk["value"] > 1e6
-    assert rk["systems"] >= 1024
-    assert bench.read_baseline("bench_baseline.json", "rk45") == rk["value"]
-
-
-def test_enable_compile_cache(tmp_path, monkeypatch):
-    """Persistent-cache helper: env dir honored, empty env disables."""
     import jax
 
     from tiger_tpu.profiling import enable_compile_cache
 
-    d = str(tmp_path / "xla_cache")
-    monkeypatch.setenv("TIGER_TPU_CACHE_DIR", d)
-    assert enable_compile_cache() == d
-    assert jax.config.jax_compilation_cache_dir == d
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    saved = (jax.config.jax_compilation_cache_dir,
+             jax.config.jax_persistent_cache_min_compile_time_secs)
+    try:
+        if env_set:
+            d = str(tmp_path / "xla_cache")
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", d)
+            assert enable_compile_cache() == d
+            assert jax.config.jax_compilation_cache_dir == saved[0]
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            want = str(repo / ".jax_cache")
+            assert enable_compile_cache() == want
+            assert jax.config.jax_compilation_cache_dir == want
+            assert ".jax_cache/" in (repo / ".gitignore").read_text().split()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", saved[0])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", saved[1])
 
-    monkeypatch.setenv("TIGER_TPU_CACHE_DIR", "")
-    assert enable_compile_cache() is None
+
+@pytest.mark.parametrize("script", ["bench.py", "chip_smoke.py"])
+def test_gpu_scripts_refuse_a_cpu_only_process(script):
+    """The measurement scripts fail, printing no result, when JAX finds no
+    GPU (bench.py runs on the CPU only when asked with --cpu)."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, script], capture_output=True, text=True, timeout=120,
+        cwd=repo, env={**os.environ, "JAX_PLATFORMS": "cpu"},
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"value"' not in proc.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    """Alone in a directory, chip_smoke.py cannot import the program and
+    must exit non-zero without a result line."""
+    import shutil
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copy(os.path.join(repo, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+        timeout=120, cwd=tmp_path, env={**env, "JAX_PLATFORMS": "cpu"},
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
 
 
 def test_calibration_example_runs(tmp_path):

@@ -1,4 +1,6 @@
-"""Fused Pallas RK45 kernel vs the vmap reference path (interpreter mode).
+"""Fused RK45 kernel (Triton route) vs the vmap reference path, in the Pallas
+interpreter; plus the wrapper's padding and dense layout, and the kernels'
+lowering for the GPU.
 
 Same controller logic, but the two programs fuse float ops differently, so a
 lane whose error estimate sits exactly on the accept boundary can diverge by
@@ -12,7 +14,7 @@ import jax.numpy as jnp
 import pytest
 
 from tiger_tpu.forcing import ForcingSet
-from tiger_tpu.kernels.rk45_pallas import rk45_solve_pallas
+from tiger_tpu.kernels.rk45_pallas import BLOCK, rk45_solve_pallas
 from tiger_tpu.models import DummyModel, Model204
 from tiger_tpu.solver import SolverConfig, rk45_solve
 
@@ -206,272 +208,69 @@ def test_failed_vs_stiff_semantics_match_vmap():
         assert not np.asarray(r.failed).any(), "criteria-stiff lanes are not failures"
 
 
-def test_query_auto_windowing_matches_unwindowed(monkeypatch):
-    # Shrink the VMEM budget so 30 queries exceed it and the pipeline scans
-    # query windows (carrying y and h across sub-intervals).  Must agree with
-    # the unwindowed kernel to controller tolerance (the only difference is
-    # one clamped step per window boundary).
-    import tiger_tpu.kernels.rk45_pallas as kp
-
-    y0 = _dummy_batch(16)
-    qt = jnp.linspace(0.2, 5.0, 30, dtype=jnp.float32)
-    h0 = jnp.full((16,), 0.05, jnp.float32)
-
-    ref = rk45_solve_pallas(
-        DummyModel(), y0, 0.0, 5.0, qt, h0=h0, config=CFG, interpret=True
-    )
-
-    monkeypatch.setattr(kp, "_VMEM_BUDGET", 438_000)
-    assert kp._pick_tile_rows(30, 5, 1, 1) is None  # windowing engaged
-    win = rk45_solve_pallas(
-        DummyModel(), y0, 0.0, 5.0, qt, h0=h0, config=CFG, interpret=True
-    )
-
-    assert win.dense.shape == ref.dense.shape == (16, 30, 5)
-    np.testing.assert_allclose(
-        np.asarray(win.y_final), np.asarray(ref.y_final), rtol=1e-4, atol=1e-7
-    )
-    np.testing.assert_allclose(
-        np.asarray(win.dense), np.asarray(ref.dense), rtol=1e-4, atol=1e-6
-    )
-    assert not np.asarray(win.stiff).any() and not np.asarray(win.failed).any()
-    # Step counts comparable (boundary clamps add ~1 step per window).
-    _assert_steps_close(win.stats.n_attempts, ref.stats.n_attempts)
+@pytest.mark.parametrize("s_count", [3, 2 * BLOCK + 5], ids=["below-one-block", "ragged"])
+def test_padding_to_whole_blocks(s_count):
+    # Lanes are padded to a whole number of blocks (replicating row 0) and
+    # sliced off again: every real lane matches the vmap path, whatever S.
+    y0 = _dummy_batch(s_count)
+    qt = jnp.asarray([1.0, 2.5, 5.0], jnp.float32)
+    h0 = jnp.full((s_count,), 0.05, jnp.float32)
+    ker = rk45_solve_pallas(DummyModel(), y0, 0.0, 5.0, qt, h0=h0, config=CFG,
+                            interpret=True)
+    ref = rk45_solve(DummyModel(), y0, 0.0, 5.0, qt, h0=h0, config=CFG)
+    assert ker.y_final.shape == (s_count, 5)
+    assert ker.dense.shape == (s_count, 3, 5)
+    for field in ("stiff", "failed"):
+        assert getattr(ker, field).shape == (s_count,)
+    assert ker.stats.n_attempts.shape == (s_count,)
+    np.testing.assert_allclose(np.asarray(ker.y_final), np.asarray(ref.y_final),
+                               rtol=2e-6, atol=1e-7)
+    np.testing.assert_allclose(np.asarray(ker.dense), np.asarray(ref.dense),
+                               rtol=2e-5, atol=1e-6)
 
 
-def test_windowing_with_forcings_and_t0_query(monkeypatch):
-    # Model 204 + absolute-time forcing gathers + fill_t0 prefill across the
-    # windowed path; vmap reference is ground truth.
-    import tiger_tpu.kernels.rk45_pallas as kp
-    from tests.test_model204 import NB_PARAMS
-
-    s_count = 16
-    rng = np.random.default_rng(11)
-    params = {k: jnp.full((s_count,), v, jnp.float32) for k, v in NB_PARAMS.items()}
-    pr = np.tile(rng.uniform(0, 0.0015, (1, s_count)), (24, 1)).astype(np.float32)
-    t2m = np.full((1, s_count), 6.0, np.float32)
-    forc = ForcingSet.from_series([pr, t2m], [60.0, 1440.0])
-    y0 = jnp.tile(jnp.asarray([0.01, 3.0, 0.0, 5.0, 0.2], jnp.float32), (s_count, 1))
-    qt = jnp.arange(0.0, 1441.0, 60.0, dtype=jnp.float32)  # 25 queries incl. t0
-    h0 = jnp.full((s_count,), 1e-3, jnp.float32)
-
-    ref = rk45_solve(Model204(), y0, 0.0, 1440.0, qt, params, forc, h0=h0, config=CFG)
-
-    monkeypatch.setattr(kp, "_VMEM_BUDGET", 600_000)
-    assert kp._pick_tile_rows(25, 5, forc.data.shape[0], len(params)) is None
-    win = rk45_solve_pallas(
-        Model204(), y0, 0.0, 1440.0, qt, params, forc, h0=h0, config=CFG,
-        interpret=True,
-    )
-    assert not np.asarray(win.stiff).any()
-    # t0 row prefilled with y0 (fill_t0_queries) in window 0 only.
-    np.testing.assert_allclose(np.asarray(win.dense[:, 0, :]), np.asarray(y0))
-    np.testing.assert_allclose(
-        np.asarray(win.y_final), np.asarray(ref.y_final), rtol=5e-3, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(win.dense), np.asarray(ref.dense), rtol=5e-3, atol=1e-5
-    )
+def test_dense_layout_with_many_queries_per_step():
+    # A fine query grid under long steps: each accepted step stores several
+    # rows per lane (the cursor loop), and the [Q*N, S] kernel buffer must
+    # land in the API's [S, Q, N] order — checked against the vmap path and
+    # against lanes that start from different states.
+    y0 = _dummy_batch(40)
+    qt = jnp.linspace(0.01, 5.0, 300, dtype=jnp.float32)
+    h0 = jnp.full((40,), 0.05, jnp.float32)
+    ker = rk45_solve_pallas(DummyModel(), y0, 0.0, 5.0, qt, h0=h0, config=CFG,
+                            interpret=True)
+    ref = rk45_solve(DummyModel(), y0, 0.0, 5.0, qt, h0=h0, config=CFG)
+    assert int(np.asarray(ker.stats.n_accepted).max()) < 300 // 4
+    assert ker.dense.shape == (40, 300, 5)
+    np.testing.assert_allclose(np.asarray(ker.dense), np.asarray(ref.dense),
+                               rtol=2e-5, atol=1e-6)
+    # Row q of lane s is lane s's state at qt[q]: lanes differ, times differ.
+    d = np.asarray(ker.dense)
+    assert not np.allclose(d[0], d[1]) and not np.allclose(d[:, 0], d[:, -1])
+    np.testing.assert_allclose(d[:, -1], np.asarray(ker.y_final), rtol=1e-6)
 
 
-def test_fsal_matches_default_at_tolerance():
-    # fsal=True reuses k7 as the next k1 (6 rhs evals/attempt instead of 7).
-    # Non-parity: trajectories agree at tolerance level with the default.
-    import dataclasses
-
-    from tests.test_model204 import NB_PARAMS
-
-    s_count = 32
-    rng = np.random.default_rng(12)
-    params = {k: jnp.full((s_count,), v, jnp.float32) for k, v in NB_PARAMS.items()}
-    pr = np.tile(rng.uniform(0, 0.0015, (1, s_count)), (24, 1)).astype(np.float32)
-    t2m = np.full((1, s_count), 7.0, np.float32)
-    forc = ForcingSet.from_series([pr, t2m], [60.0, 1440.0])
-    y0 = jnp.tile(jnp.asarray([0.01, 3.0, 0.0, 5.0, 0.2], jnp.float32), (s_count, 1))
-    h0 = jnp.full((s_count,), 1e-3, jnp.float32)
-
-    base = rk45_solve_pallas(
-        Model204(), y0, 0.0, 1440.0, None, params, forc, h0=h0, config=CFG,
-        interpret=True,
-    )
-    fsal = rk45_solve_pallas(
-        Model204(), y0, 0.0, 1440.0, None, params, forc, h0=h0,
-        config=dataclasses.replace(CFG, fsal=True), interpret=True,
-    )
-    mask = ~(np.asarray(base.stiff) | np.asarray(fsal.stiff))
-    np.testing.assert_allclose(
-        np.asarray(fsal.y_final)[mask], np.asarray(base.y_final)[mask],
-        rtol=5e-3, atol=1e-6,
-    )
-    # Same order of work: attempt counts comparable.
-    _assert_steps_close(fsal.stats.n_attempts, base.stats.n_attempts, mask=mask)
-
-
-def test_fsal_no_spurious_flags_on_forcing_kinks():
-    # Hour-to-hour varying rain: every ZOH boundary is a kink.  With forcing
-    # frozen at step start, a naive FSAL carry goes stale across boundaries
-    # (k1's forcing disagrees with k2..k7's) and the inconsistent error
-    # estimate rejection-storms small-magnitude states into bogus stiff
-    # flags (measured 6.5% of the 131k bench).  The kernel's boundary-
-    # crossing carry refresh makes FSAL bit-identical to the default kernel
-    # on this scenario: same flags (none), same attempt counts, same states.
-    import dataclasses
-
-    from tests.test_model204 import NB_PARAMS
-
-    s_count = 64
-    rng = np.random.default_rng(3)
-    params = {
-        k: jnp.asarray(np.full(s_count, v) * rng.uniform(0.9, 1.1, s_count),
-                       jnp.float32)
-        for k, v in NB_PARAMS.items()
-    }
-    pr = rng.uniform(0, 0.0015, (24, s_count)).astype(np.float32)
-    t2m = rng.uniform(2.0, 10.0, (1, s_count)).astype(np.float32)
-    forc = ForcingSet.from_series([pr, t2m], [60.0, 1440.0])
-    y0 = jnp.tile(jnp.asarray([0.01, 3.0, 0.0, 5.0, 0.2], jnp.float32), (s_count, 1))
-    h0 = jnp.full((s_count,), 1e-3, jnp.float32)
-    cfg = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=50_000)
-
-    base = rk45_solve_pallas(
-        Model204(), y0, 0.0, 1440.0, None, params, forc, h0=h0, config=cfg,
-        interpret=True,
-    )
-    fsal = rk45_solve_pallas(
-        Model204(), y0, 0.0, 1440.0, None, params, forc, h0=h0,
-        config=dataclasses.replace(cfg, fsal=True), interpret=True,
-    )
-    assert not np.asarray(base.stiff).any()
-    assert not np.asarray(fsal.stiff).any(), "stale FSAL carry flagged lanes"
-    np.testing.assert_array_equal(
-        np.asarray(fsal.stats.n_attempts), np.asarray(base.stats.n_attempts)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(fsal.y_final), np.asarray(base.y_final)
-    )
-
-
-def test_fsal_unforced_dummy_accuracy():
-    # Without forcing boundaries FSAL is exact DP-FSAL; must match the
-    # default kernel to integration tolerance.
-    import dataclasses
-
-    y0 = _dummy_batch(32)
-    h0 = jnp.full((32,), 0.05, jnp.float32)
-    base = rk45_solve_pallas(DummyModel(), y0, 0.0, 5.0, None, h0=h0,
-                             config=CFG, interpret=True)
-    fsal = rk45_solve_pallas(DummyModel(), y0, 0.0, 5.0, None, h0=h0,
-                             config=dataclasses.replace(CFG, fsal=True),
-                             interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(fsal.y_final), np.asarray(base.y_final), rtol=2e-5, atol=1e-7
-    )
-
-
-def test_kernel_bf16_forcing_close_to_f32():
-    """forcing_dtype='bf16' quantizes only the forcing values: trajectories
-    stay within the quantization-propagated tolerance of the f32 kernel."""
-    import dataclasses
-
-    from tests.test_model204 import NB_PARAMS
-
-    s_count = 32
-    rng = np.random.default_rng(5)
-    params = {
-        k: jnp.asarray(np.full(s_count, v) * rng.uniform(0.9, 1.1, s_count), jnp.float32)
-        for k, v in NB_PARAMS.items()
-    }
-    pr = np.tile(rng.uniform(0, 0.0015, (1, s_count)), (24, 1)).astype(np.float32)
-    t2m = rng.uniform(2, 10, (1, s_count)).astype(np.float32)
-    forc = ForcingSet.from_series([pr, t2m], [60.0, 1440.0])
-    y0 = jnp.tile(jnp.asarray([0.01, 3.0, 0.0, 5.0, 0.2], jnp.float32), (s_count, 1))
-    qt = jnp.arange(0.0, 1441.0, 360.0, dtype=jnp.float32)
-    h0 = jnp.full((s_count,), 1e-3, jnp.float32)
-
-    a = rk45_solve_pallas(
-        Model204(), y0, 0.0, 1440.0, qt, params, forc, h0=h0, config=CFG,
-        interpret=True,
-    )
-    cfg16 = dataclasses.replace(CFG, forcing_dtype="bf16")
-    b = rk45_solve_pallas(
-        Model204(), y0, 0.0, 1440.0, qt, params, forc, h0=h0, config=cfg16,
-        interpret=True,
-    )
-    # bf16 forcing is a ~0.4% input perturbation; trajectories track within
-    # a few percent through 204's kinks.
-    np.testing.assert_allclose(
-        np.asarray(b.y_final), np.asarray(a.y_final), rtol=4e-2, atol=1e-4
-    )
-
-
-def test_windowed_stiff_lanes_carry_not_reintegrated(monkeypatch):
-    """A lane stiff-flagged in window k must stay flagged in later windows
-    instead of re-integrating from NaN state (inflating attempt counts by
-    ~max_rejects per window)."""
-    import tiger_tpu.kernels.rk45_pallas as kp
-    from tests.test_solve_device_rung import StiffMix
-
-    s = 8
-    lam = np.full(s, -0.05, np.float32)
-    lam[2] = -1e7  # flags stiff almost immediately
-    y0 = jnp.ones((s, 5), jnp.float32)
-    params = {"lam": jnp.asarray(lam)}
-    qt = jnp.linspace(1.0, 100.0, 30, dtype=jnp.float32)
-    h0 = jnp.full((s,), 1e-3, jnp.float32)
-
-    ref = rk45_solve_pallas(
-        StiffMix(), y0, 0.0, 100.0, qt, params, h0=h0, config=CFG,
-        interpret=True,
-    )
-    monkeypatch.setattr(kp, "_VMEM_BUDGET", 438_000)
-    win = rk45_solve_pallas(
-        StiffMix(), y0, 0.0, 100.0, qt, params, h0=h0, config=CFG,
-        interpret=True,
-    )
-    assert np.asarray(ref.stiff)[2] and np.asarray(win.stiff)[2]
-    # The flagged lane's attempts must not scale with the window count.
-    att_ref = int(np.asarray(ref.stats.n_attempts)[2])
-    att_win = int(np.asarray(win.stats.n_attempts)[2])
-    assert att_win <= att_ref + 2
-    # Healthy lanes unaffected.
-    mask = lam > -1.0
-    np.testing.assert_allclose(
-        np.asarray(win.y_final)[mask], np.asarray(ref.y_final)[mask],
-        rtol=1e-4, atol=1e-7,
-    )
-
-
-def test_dense_lockstep_matches_default():
-    """dense_lockstep (opt-in; DESIGN.md round-5 dense-fill notes): the
-    tile-uniform query-barrier must leave trajectories tolerance-equal to
-    the default union-window fill, with only a handful of extra
-    barrier-capped attempts, and identical stiff/failed flags."""
+@pytest.mark.parametrize("kernel", ["rk45", "radau"])
+@pytest.mark.parametrize("model", ["m204", "m200"])
+def test_kernels_lower_for_the_gpu(kernel, model):
+    # Lowering to Triton IR for CUDA runs on any host: it catches primitives
+    # the Triton route cannot express before the card ever sees the kernel.
     import dataclasses
 
     from __graft_entry__ import _scenario
-    from tiger_tpu.models import Model204
+    from tiger_tpu.kernels import radau_pallas, rk45_pallas
+    from tiger_tpu.models import Model200
 
-    s, tf = 16, 2880.0
-    y0, params, forc = _scenario(s, jnp.float32, days=2.0, stiff_frac=0.0)
-    qt = jnp.arange(0.0, tf + 1e-9, 360.0, dtype=jnp.float32)
-    h0 = jnp.full((s,), 1e-3, jnp.float32)
-    cfg = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
-    base = rk45_solve_pallas(
-        Model204(), y0, 0.0, tf, qt, params, forc, h0=h0, config=cfg,
-        interpret=True,
-    )
-    lk = rk45_solve_pallas(
-        Model204(), y0, 0.0, tf, qt, params, forc, h0=h0,
-        config=dataclasses.replace(cfg, dense_lockstep=True), interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(lk.stiff), np.asarray(base.stiff))
-    np.testing.assert_array_equal(np.asarray(lk.failed), np.asarray(base.failed))
-    np.testing.assert_allclose(
-        np.asarray(lk.y_final), np.asarray(base.y_final), rtol=2e-4, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(lk.dense), np.asarray(base.dense), rtol=2e-3, atol=1e-5
-    )
-    a0 = int(np.asarray(base.stats.n_attempts).sum())
-    a1 = int(np.asarray(lk.stats.n_attempts).sum())
-    assert a1 <= a0 * 1.1 + 64, (a0, a1)  # barrier caps cost at most a few
+    m = Model204() if model == "m204" else Model200()
+    y0, params, forc = _scenario(2 * BLOCK, jnp.float32, days=1.0)
+    qt = jnp.arange(0.0, 1441.0, 60.0, dtype=jnp.float32)
+    h0 = jnp.full((2 * BLOCK,), 1e-3, jnp.float32)
+    cfg = dataclasses.replace(CFG, controller="pi", compensated=kernel == "rk45",
+                              radau_error_mode="radau5", radau_factor_reuse=True,
+                              radau_predictor=True)
+    pipe = rk45_pallas.rk45_pipeline if kernel == "rk45" else radau_pallas._pipeline
+    lowered = pipe.trace(
+        m, y0, h0, params, forc.data, qt, 0.0, 1440.0, forc.meta, cfg,
+        tuple(sorted(params)), False, jnp.float32(0.0),
+    ).lower(lowering_platforms=("cuda",))
+    assert "__gpu$xla.gpu.triton" in lowered.as_text()

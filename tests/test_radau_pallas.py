@@ -94,42 +94,6 @@ def test_model204_kernel_radau_runs():
     )
 
 
-def test_radau_query_auto_windowing_matches_unwindowed(monkeypatch):
-    # Shrink the VMEM budget so the dense block forces query windowing (scan
-    # over sub-intervals carrying y and h) — must agree with the unwindowed
-    # kernel to controller tolerance (one clamped step per window boundary).
-    import tiger_tpu.kernels.radau_pallas as rp
-
-    s = 16
-    params = {"lam": jnp.full((s,), -2.0, jnp.float32)}
-    y0 = jnp.tile(jnp.asarray([2.0, 1.0], jnp.float32), (s, 1))
-    h0 = jnp.full((s,), 0.01, jnp.float32)
-    qt = jnp.linspace(0.2, 5.0, 30, dtype=jnp.float32)
-
-    ref = radau_solve_pallas(
-        Decay2(), y0, 0.0, 5.0, qt, params, h0=h0, config=CFG, interpret=True
-    )
-
-    # Budget chosen so the 30-query dense block overflows but a >= 8-query
-    # window fits next to the Newton region (whose estimate grew in round 5:
-    # carried reuse factors + radau5 error temporaries, _newton_region).
-    monkeypatch.setattr(rp, "_VMEM_BUDGET", 900_000)
-    rows, qc = rp._plan_tiles(s, 30, 2, 1, 1)
-    assert qc is not None  # windowing engaged
-    win = radau_solve_pallas(
-        Decay2(), y0, 0.0, 5.0, qt, params, h0=h0, config=CFG, interpret=True
-    )
-
-    assert win.dense.shape == ref.dense.shape == (16, 30, 2)
-    np.testing.assert_allclose(
-        np.asarray(win.y_final), np.asarray(ref.y_final), rtol=1e-4, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(win.dense), np.asarray(ref.dense), rtol=1e-3, atol=1e-5
-    )
-    assert not np.asarray(win.failed).any()
-
-
 def test_radau5_error_mode_kernel_matches_vmap():
     # The fused kernel's 'radau5' smoothed estimate (reusing the real
     # eigenbasis Newton factor, mu == gamma) vs the vmap implementation of

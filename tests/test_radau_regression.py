@@ -61,8 +61,8 @@ def test_stiff_lane_attempts_budget():
 
 def test_model200_radau_attempts_budget():
     """Model 200 through the Radau path: the implicit-kernel economics guard
-    for the second model family (round-5 verdict item; the TPU perf record
-    is bench.py --solver radau --model 200).
+    for the second model family (its throughput record is
+    bench.py --solver radau --model 200).
 
     Model 200 has NO genuinely stiff scenario to pin: every flux in its RHS
     is rate-capped by design — ETactual's ramp is bounded by Emax ~ 4e-7

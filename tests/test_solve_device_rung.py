@@ -1,11 +1,12 @@
 """The on-device Radau rung for small stiff counts (api.solve).
 
-On TPU, ANY flagged lanes are re-integrated by the fused Radau kernel padded
-to a 256-lane bucket; only kernel failures fall through to the CPU float64
-pipeline.  TT_FORCE_DEVICE_RUNG exercises the same branch here on CPU via
-the Pallas interpreter, pinning the pad/merge/mask bookkeeping that a year-
-scale streamed run exercises on hardware (reference analog: the host-side
-stiff compaction in rk45_api.hpp:190-247).
+On kernel runs, ANY flagged lanes are re-integrated by the fused Radau
+kernel padded to a 256-lane bucket; only kernel failures fall through to the
+host float64 pipeline.  backend='pallas' with interpret=True exercises the
+same branches here on CPU via the Pallas interpreter, pinning the
+pad/merge/mask bookkeeping that a year-scale streamed run exercises on the
+card (reference analog: the host-side stiff compaction in
+rk45_api.hpp:190-247).
 """
 
 import numpy as np
@@ -38,12 +39,14 @@ def mix():
 
 
 def test_device_rung_resolves_small_stiff_subset(mix, monkeypatch):
-    monkeypatch.setenv("TT_FORCE_DEVICE_RUNG", "1")
+    monkeypatch.setenv("TT_NO_SPECULATIVE_RUNG", "1")
     y0, params, lam = mix
     qt = jnp.asarray([25.0, 50.0])
     res = solve(StiffMix(), y0, 0.0, 50.0, qt, params=params,
-                config=SolverConfig(rtol=1e-5, atol=1e-8))
+                config=SolverConfig(rtol=1e-5, atol=1e-8),
+                backend="pallas", interpret=True)
     assert res.n_stiff == 2
+    assert res.n_host == 0
     assert not np.asarray(res.failed).any()
     expect_final = np.exp(lam.astype(np.float64) * 50.0)
     got = np.asarray(res.y_final)
@@ -62,14 +65,15 @@ def test_device_rung_resolves_small_stiff_subset(mix, monkeypatch):
 
 
 def test_device_rung_failures_fall_through_to_cpu(mix, monkeypatch):
-    """Lanes the kernel cannot finish are retried by the f64 CPU pipeline."""
-    monkeypatch.setenv("TT_FORCE_DEVICE_RUNG", "1")
+    """Lanes the kernel cannot finish are retried by the f64 host pipeline."""
+    monkeypatch.setenv("TT_NO_SPECULATIVE_RUNG", "1")
     y0, params, lam = mix
     # A Radau bail-out is hard to force with linear decay; instead cap the
     # kernel's Newton budget so hard lanes reject until radau_max_rejects.
     cfg = SolverConfig(rtol=1e-5, atol=1e-8, newton_max_iter=1,
                        radau_max_rejects=1)
-    res = solve(StiffMix(), y0, 0.0, 50.0, None, params=params, config=cfg)
+    res = solve(StiffMix(), y0, 0.0, 50.0, None, params=params, config=cfg,
+                backend="pallas", interpret=True)
     # Whatever the kernel failed, the CPU pass must leave nothing failed
     # unless it also bailed; in either case the result is finite and sane.
     got = np.asarray(res.y_final)
@@ -82,21 +86,19 @@ def test_speculative_rung_matches_blocking_path(mix, monkeypatch):
     """The speculative rung dispatch (device-side compaction, round 5) must
     produce the same results as the blocking pull-then-dispatch path, fill
     sentinel lanes with NaN working sets that scatter nowhere, and report
-    the same stiff bookkeeping.  Exercised on CPU via backend='pallas'
-    (interpreter) + TT_FORCE_SPECULATIVE_RUNG."""
+    the same stiff bookkeeping.  Exercised on CPU via backend='pallas' in
+    the interpreter."""
     y0, params, lam = mix
     qt = jnp.asarray([25.0, 50.0])
     cfg = SolverConfig(rtol=1e-5, atol=1e-8)
 
     monkeypatch.setenv("TT_NO_SPECULATIVE_RUNG", "1")
-    monkeypatch.setenv("TT_FORCE_DEVICE_RUNG", "1")
     base = solve(StiffMix(), y0, 0.0, 50.0, qt, params=params, config=cfg,
-                 backend="pallas")
+                 backend="pallas", interpret=True)
 
     monkeypatch.delenv("TT_NO_SPECULATIVE_RUNG")
-    monkeypatch.setenv("TT_FORCE_SPECULATIVE_RUNG", "1")
     spec = solve(StiffMix(), y0, 0.0, 50.0, qt, params=params, config=cfg,
-                 backend="pallas")
+                 backend="pallas", interpret=True)
 
     assert spec.n_stiff == base.n_stiff == 2
     assert not np.asarray(spec.failed).any()
@@ -112,13 +114,13 @@ def test_speculative_rung_matches_blocking_path(mix, monkeypatch):
 def test_speculative_rung_zero_stiff_is_clean(monkeypatch):
     """No flagged lanes: the wasted speculative kernel call must leave the
     outputs bit-identical to the RK pass and report n_stiff == 0."""
-    monkeypatch.setenv("TT_FORCE_SPECULATIVE_RUNG", "1")
     s = 8
     y0 = jnp.ones((s, 5), jnp.float32)
     params = {"lam": jnp.full((s,), -0.1, jnp.float32)}
     qt = jnp.asarray([25.0, 50.0])
     res = solve(StiffMix(), y0, 0.0, 50.0, qt, params=params,
-                config=SolverConfig(rtol=1e-5, atol=1e-8), backend="pallas")
+                config=SolverConfig(rtol=1e-5, atol=1e-8), backend="pallas",
+                interpret=True)
     assert res.n_stiff == 0
     assert res.radau_stats is None
     assert not np.asarray(res.failed).any()
@@ -130,8 +132,6 @@ def test_speculative_rung_overflow_beyond_bucket(monkeypatch):
     """More flagged lanes than the speculative bucket: the first ``bucket``
     are resolved by the speculative kernel, the overflow goes through the
     exact-size device rung, and every lane still lands on the Radau answer."""
-    monkeypatch.setenv("TT_FORCE_SPECULATIVE_RUNG", "1")
-    monkeypatch.setenv("TT_FORCE_DEVICE_RUNG", "1")  # overflow path on CPU
     monkeypatch.setenv("TT_SPEC_BUCKET", "4")
     s = 12
     lam = np.full(s, -0.1, np.float32)
@@ -141,8 +141,9 @@ def test_speculative_rung_overflow_beyond_bucket(monkeypatch):
     params = {"lam": jnp.asarray(lam)}
     res = solve(StiffMix(), y0, 0.0, 50.0, jnp.asarray([25.0, 50.0]),
                 params=params, config=SolverConfig(rtol=1e-5, atol=1e-8),
-                backend="pallas")
+                backend="pallas", interpret=True)
     assert res.n_stiff == 6
+    assert res.n_host == 0
     assert not np.asarray(res.failed).any()
     got = np.asarray(res.y_final)
     np.testing.assert_allclose(got[stiff_rows], 0.0, atol=1e-6)

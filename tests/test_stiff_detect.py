@@ -15,7 +15,6 @@ import jax.numpy as jnp
 import pytest
 
 from tiger_tpu.forcing import ForcingSet
-from tiger_tpu.kernels import rk45_pallas as kp
 from tiger_tpu.kernels.rk45_pallas import rk45_solve_pallas
 from tiger_tpu.models import Model204
 from tiger_tpu.solver import SolverConfig, rk45_solve
@@ -94,27 +93,6 @@ def test_kernel_matches_vmap_flags():
     )
     np.testing.assert_array_equal(np.asarray(rv.stiff), np.asarray(rk.stiff))
     assert int(np.asarray(rk.stats.n_attempts).max()) < 500
-
-
-def test_detector_counters_carry_across_query_windows(monkeypatch):
-    """Windowed kernel: (iasti, nonsti) ride the h0_ref rows like h/stiff/
-    facold, so a treadmill straddling a window boundary still accumulates —
-    same flags as the unwindowed kernel."""
-    y0, params, forc = _grinder_batch()
-    h0 = jnp.full((y0.shape[0],), 1e-6, jnp.float32)
-    cfg = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=30_000, stiff_detect=True)
-    qt = jnp.arange(30.0, 481.0, 30.0, dtype=jnp.float32)
-    base = rk45_solve_pallas(
-        Model204(), y0, 0.0, 480.0, qt, params, forc, h0=h0, config=cfg,
-        interpret=True,
-    )
-    monkeypatch.setattr(kp, "_VMEM_BUDGET", 438_000)
-    win = rk45_solve_pallas(
-        Model204(), y0, 0.0, 480.0, qt, params, forc, h0=h0, config=cfg,
-        interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(base.stiff), np.asarray(win.stiff))
-    assert bool(np.asarray(win.stiff).all())
 
 
 def test_reference_parity_disables_detector():

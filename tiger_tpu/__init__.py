@@ -1,4 +1,4 @@
-"""tiger_tpu — TPU-native hillslope hydrologic model engine.
+"""tiger_tpu — hillslope hydrologic model engine in JAX.
 
 A from-scratch JAX / XLA / Pallas / shard_map framework with the capabilities of
 PrincetonUniversity/Tiger_HLM_GPU (reference mounted read-only at /root/reference):

@@ -6,19 +6,18 @@ them.  Here: cold start = common y0 vector broadcast over systems (the
 reference's hard-coded y0_common, main.cpp:377); hot start = restore the full
 [S, N] state from a state file, which doubles as checkpoint/resume.
 
-State files use the final-state NetCDF layout (system, variable) plus a
-``sim_time_minutes`` attribute, so a run's final output can be fed back as the
-next run's hot start.
+State files use the final-state layout (system, variable) plus a
+``sim_time_minutes`` attribute, written as classic NetCDF through scipy (no
+HDF5 library needed to checkpoint or resume).  load_state also reads a
+NETCDF4 final_*.nc, so a run's final output can be fed back as the next
+run's hot start.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import h5py
 import numpy as np
-
-from tiger_tpu.io.output import write_final_netcdf
 
 
 def save_state(path: str, y: np.ndarray, link_ids: np.ndarray, sim_time_minutes: float) -> None:
@@ -31,11 +30,18 @@ def save_state(path: str, y: np.ndarray, link_ids: np.ndarray, sim_time_minutes:
     """
     import os
 
+    from scipy.io import netcdf_file
+
+    y = np.asarray(y)
     tmp = path + ".tmp"
-    write_final_netcdf(tmp, np.asarray(y), np.asarray(link_ids))
-    with h5py.File(tmp, "a") as f:
-        f.attrs["sim_time_minutes"] = float(sim_time_minutes)
-        f.flush()
+    with netcdf_file(tmp, "w", version=2) as f:
+        f.createDimension("system", y.shape[0])
+        f.createDimension("variable", y.shape[1])
+        # Link ids as f8: classic NetCDF has no 64-bit integers, and f8 is
+        # exact for every id below 2**53.
+        f.createVariable("system", "f8", ("system",))[:] = np.asarray(link_ids)
+        f.createVariable("outputs", y.dtype.char, ("system", "variable"))[:] = y
+        f.sim_time_minutes = float(sim_time_minutes)
     # fsync the data BEFORE the rename: on ext4/xfs the rename can become
     # durable while the file contents are still in the page cache, which on
     # power loss leaves a truncated file atomically renamed over the only
@@ -60,15 +66,28 @@ def load_state(
     resumable checkpoint (e.g. a plain final_*.nc) — raise instead of
     silently defaulting to t=0 and re-running the whole span.
     """
-    with h5py.File(path, "r") as f:
-        y = np.asarray(f["outputs"], np.float64)
-        ids = np.asarray(f["system"], np.int64)
-        if require_time and "sim_time_minutes" not in f.attrs:
-            raise ValueError(
-                f"{path} has no sim_time_minutes attribute — it is a plain "
-                "state/final file, not a resumable checkpoint"
-            )
-        t = float(f.attrs.get("sim_time_minutes", 0.0))
+    with open(path, "rb") as fh:
+        classic = fh.read(3) == b"CDF"
+    if classic:
+        from scipy.io import netcdf_file
+
+        with netcdf_file(path, "r", mmap=False) as f:
+            y = np.array(f.variables["outputs"][:], np.float64)
+            ids = np.array(f.variables["system"][:]).astype(np.int64)
+            attrs = dict(f._attributes)
+    else:
+        from tiger_tpu.io.netcdf import h5py_module
+
+        with h5py_module().File(path, "r") as f:
+            y = np.asarray(f["outputs"], np.float64)
+            ids = np.asarray(f["system"], np.int64)
+            attrs = dict(f.attrs)
+    if require_time and "sim_time_minutes" not in attrs:
+        raise ValueError(
+            f"{path} has no sim_time_minutes attribute — it is a plain "
+            "state/final file, not a resumable checkpoint"
+        )
+    t = float(attrs.get("sim_time_minutes", 0.0))
     if link_ids is not None:
         link_ids = np.asarray(link_ids, np.int64)
         order = np.argsort(ids, kind="stable")

@@ -146,17 +146,12 @@ class SolverInfo:
     min_scale: float = 0.2
     max_scale: float = 10.0
     initial_step: Optional[float] = None
-    # 'f64' matches the reference (double everywhere); 'f32' is the TPU
-    # performance path (pair it with rtol >= ~1e-5: tolerances below f32
+    # 'f64' matches the reference (double everywhere); 'f32' is the fused
+    # GPU kernel path (pair it with rtol >= ~1e-5: tolerances below f32
     # rounding accumulate past them); 'f32c' is f32 with compensated (Kahan)
-    # state accumulation — the tight-tolerance TPU path, which holds the
-    # reference's own rtol 1e-6 / atol 1e-9 at full kernel speed
-    # (SolverConfig.compensated).
+    # state accumulation, which holds the reference's own rtol 1e-6 /
+    # atol 1e-9 in f32 (SolverConfig.compensated).
     precision: str = "f64"
-    # Kernel-resident forcing precision (SolverConfig.forcing_dtype):
-    # 'bf16' halves the forcing VMEM footprint when long windows would
-    # otherwise force smaller kernel tiles.
-    forcing_precision: str = "f32"
     # Step-size controller: 'i' (reference parity) or 'pi' (Lund-stabilized;
     # fewer rejected attempts on forcing-kink-heavy runs).
     controller: str = "i"
@@ -206,7 +201,6 @@ class SimulationConfig:
             min_scale=self.solver.min_scale,
             max_scale=self.solver.max_scale,
             initial_step=self.solver.initial_step,
-            forcing_dtype=self.solver.forcing_precision,
             controller=self.solver.controller,
             pi_beta=self.solver.pi_beta,
             compensated=self.solver.precision == "f32c",
@@ -344,7 +338,6 @@ def load_config(path: str) -> SimulationConfig:
             max_scale=float(tol.get("max_scale", 10.0)),
             initial_step=(None if s.get("initial_step") is None else float(s["initial_step"])),
             precision=str(s.get("precision", "f64")),
-            forcing_precision=str(s.get("forcing_precision", "f32")),
             controller=str(s.get("controller", "i")),
             pi_beta=float(s.get("pi_beta", 0.04)),
         )
@@ -357,11 +350,6 @@ def load_config(path: str) -> SimulationConfig:
         if cfg.solver.precision not in ("f64", "f32", "f32c"):
             raise ValueError(
                 f"solver.precision must be f64|f32|f32c, got {cfg.solver.precision}"
-            )
-        if cfg.solver.forcing_precision not in ("f32", "bf16"):
-            raise ValueError(
-                f"solver.forcing_precision must be f32|bf16, got "
-                f"{cfg.solver.forcing_precision}"
             )
         if cfg.solver.controller not in ("i", "pi"):
             raise ValueError(

@@ -1,4 +1,4 @@
-"""Diagnostic helpers: the TPU-native analog of the reference's debug kernels.
+"""Diagnostic helpers: the JAX analog of the reference's debug kernels.
 
 The reference's entire diagnostic surface is ~210 LoC of printf CUDA kernels
 in `main.cpp` — `debugForcings/2/Multi` (:44-102), `debugMinuteForcings`

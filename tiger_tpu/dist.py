@@ -3,13 +3,13 @@
 Replaces the reference's MPI layer (SURVEY.md 2.10): rank 0 splitting the
 SpatialParams table into MPI_BYTE blobs (main.cpp:257-310) becomes per-shard
 row slicing of the SoA; one-GPU-per-rank becomes a 1-D ``jax.sharding.Mesh``
-over all local (or pod-slice) devices.
+over all local (or multi-host) devices.
 
 Why shard_map and not plain batch-dim sharding: the adaptive integration is a
 ``lax.while_loop`` whose continuation predicate reduces over lanes.  Under
 global SPMD sharding that reduction becomes a cross-device collective every
-step and forces *global* termination (every chip steps until the slowest lane
-anywhere finishes).  ``shard_map`` instead gives each shard its own loop with
+step and forces *global* termination (every device steps until the slowest
+lane anywhere finishes).  ``shard_map`` instead gives each shard its own loop with
 local termination — the distributed analog of the reference's independent
 ranks — and needs zero collectives during integration because systems are
 independent (routing exchange, when enabled, rides ``jax.lax.ppermute``; see
@@ -56,11 +56,12 @@ def _pad_batch(arr, n_pad, axis=0):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("model", "t0", "tf", "meta", "config", "mesh", "backend"),
+    static_argnames=("model", "t0", "tf", "meta", "config", "mesh", "backend",
+                     "interpret"),
 )
 def _sharded_rk45(
     model, y0, t0, tf, qt, params, forc_data, meta, h0, config, mesh,
-    backend="xla", t_shift=0.0,
+    backend="xla", t_shift=0.0, interpret=False,
 ):
     spec_b = P("systems")  # batch-major shards
     spec_forc = P(None, "systems")  # forcing is [T, S]
@@ -75,19 +76,12 @@ def _sharded_rk45(
     def shard_body(y0_s, h0_s, params_s, forc_s):
         if backend == "pallas":
             # The fused kernel composes under shard_map: each shard runs its
-            # own grid of tiles on its chip (multi-chip pods).
-            from tiger_tpu.kernels.rk45_pallas import _pallas_pipeline
+            # own grid of blocks on its own device.
+            from tiger_tpu.kernels.rk45_pallas import rk45_pipeline
 
-            param_fields = ()
-            p_dict = None
-            if params_s is not None:
-                param_fields = tuple(sorted(params_s.keys()))
-                p_dict = params_s
-            # The MESH devices decide (a CPU mesh on a TPU-attached host must
-            # interpret, not hand Mosaic a CPU lowering).
-            interpret = mesh.devices.flat[0].platform != "tpu"
-            return _pallas_pipeline(
-                model, y0_s, h0_s, p_dict, forc_s, qt,
+            param_fields = () if params_s is None else tuple(sorted(params_s))
+            return rk45_pipeline(
+                model, y0_s, h0_s, params_s, forc_s, qt,
                 t0, tf, meta, config, param_fields, interpret,
                 t_shift,  # closure capture: replicated scalar per shard
             )
@@ -129,19 +123,21 @@ def rk45_solve_sharded(
     backend: str = "xla",
     t_shift=0.0,
     lower_only: bool = False,
+    interpret: bool = False,
 ) -> RK45Result:
     """RK45 over a device mesh: systems split evenly across devices.
 
     The batch is padded (edge-replicated rows) to a multiple of the mesh size
     and un-padded on return.  Stiff systems are still handled by the host
     two-phase pipeline (tiger_tpu.solver.api.solve) on the gathered flags.
-    ``backend='pallas'`` runs the fused kernel per shard (TPU pods); note the
-    per-shard batch is padded to the kernel tile size internally.
+    ``backend='pallas'`` runs the fused GPU kernel per shard (``interpret``
+    runs it in the Pallas interpreter); the per-shard batch is padded to the
+    kernel block size internally.
 
     ``lower_only=True`` returns the jax.stages.Lowered sharded solve instead
     of executing it — collective audits (benchmarks/weak_scaling.py) compile
     it and grep the HLO to prove the solve is pure domain decomposition (no
-    inter-device communication exists to slow real-ICI weak scaling).
+    inter-device communication exists to slow weak scaling).
     """
     if mesh is None:
         mesh = systems_mesh()
@@ -162,23 +158,22 @@ def rk45_solve_sharded(
     )
     forc_data = None if forcings is None else _pad_batch(forcings.data, n_pad, axis=1)
     meta = None if forcings is None else forcings.meta
-    from tiger_tpu.kernels.rk45_pallas import dedup_queries
+    from tiger_tpu.kernels.rk45_pallas import check_sorted_queries
 
-    qt, q_inverse = dedup_queries(query_times, y0.dtype)
+    qt = check_sorted_queries(query_times, y0.dtype)
 
     if lower_only:
         return _sharded_rk45.lower(
             model, y0p, float(t0), float(tf), qt, params_p, forc_data, meta,
             h0p, config, mesh, backend, jnp.asarray(t_shift, y0.dtype),
+            interpret,
         )
     res = _sharded_rk45(
         model, y0p, float(t0), float(tf), qt, params_p, forc_data, meta, h0p,
-        config, mesh, backend, jnp.asarray(t_shift, y0.dtype),
+        config, mesh, backend, jnp.asarray(t_shift, y0.dtype), interpret,
     )
     if n_pad:
         res = jax.tree.map(lambda a: a[:s_count], res)
-    if q_inverse is not None:
-        res = res._replace(dense=res.dense[:, q_inverse, :])
     return res
 
 

@@ -8,9 +8,9 @@ kernel per-step gather with zero-order hold: sampleIdx = clamp(floor(t /
 ONCE per attempted step at step-start t and held constant across all 7 RK
 stages (rk45_step_dense.cuh:104-105) — reproduced here for parity.
 
-TPU-native differences:
+Differences from the reference:
   - the packed array is [T_total, S] (time-major blocks concatenated on axis 0)
-    so the batch dimension S rides the TPU lanes; the remap is a vectorized
+    so the batch dimension S is the contiguous one; the remap is a vectorized
     numpy/jnp fancy-index gather instead of the reference's O(nT*S) scalar
     host loop (main.cpp:543-549);
   - per-forcing metadata (row offset, step count, dt in MINUTES) is static
@@ -87,8 +87,7 @@ class ForcingSet:
         link and gathers the [T, S] per-system layout there — at 131k systems
         on a 64x128 ERA5-style grid that is 16x fewer bytes per window than
         uploading the host-remapped series (100x at 1M systems), which
-        matters when the device link is the bottleneck (remote-tunneled TPU,
-        multi-host pods).  Values are bitwise-identical to
+        matters when the host->device link is the bottleneck.  Values are bitwise-identical to
         ``from_series(remap_grid_to_systems(...))``.
         """
         if len(grids) != len(dt_minutes):

@@ -18,10 +18,9 @@ from __future__ import annotations
 
 from typing import Optional
 
-import h5py
 import numpy as np
 
-from tiger_tpu.io.netcdf import NetCDFWriter
+from tiger_tpu.io.netcdf import NetCDFWriter, h5py_module
 
 
 
@@ -112,8 +111,8 @@ def _pack_cf_int16(dense):
     # spans huge-but-finite magnitudes (scale=inf would then quantize EVERY
     # sample to code 0 silently).  hi/65532 - lo/65532 cannot overflow, and
     # an (x-offset) overflow in the quantizer just saturates via the clip.
-    # (f64 here is not an option: x64 is off in TPU processes and jnp would
-    # silently downcast.)
+    # (f64 here is not an option: x64 is off in f32 accelerator processes
+    # and jnp would silently downcast.)
     scale = jnp.maximum(hi / 65532.0 - lo / 65532.0, jnp.float32(1e-30))
     offset = hi * 0.5 + lo * 0.5
     q = jnp.clip(jnp.round((x - offset) / scale), -32766.0, 32766.0)
@@ -232,7 +231,7 @@ class WindowedPackedWriter:
                 raise FileNotFoundError(
                     f"resume requested but output file is missing: {path}"
                 )
-            f = h5py.File(path, "r+")
+            f = h5py_module().File(path, "r+")
             try:
                 for name, s, o in zip(names, self._scale, self._offset):
                     if name not in f:
@@ -304,8 +303,7 @@ class WindowedPackedWriter:
         if self._pending is not None:
             self._pending.result()
             self._pending = None
-        f = self._w if isinstance(self._w, h5py.File) else self._w._f
-        f.flush()
+        self._h5.flush()
 
     def close(self) -> None:
         try:
@@ -367,7 +365,7 @@ class WindowedVarWriter:
                 raise FileNotFoundError(
                     f"resume requested but output file is missing: {path}"
                 )
-            f = h5py.File(path, "r+")
+            f = h5py_module().File(path, "r+")
             try:
                 if var_name not in f:
                     raise KeyError(
@@ -403,12 +401,14 @@ class WindowedVarWriter:
                 f.close()
                 raise
             self._w = f  # h5py.File: has .close(), all defs already exist
+            self._h5 = f
             self._dtype = np.dtype(dtype)
             self._ds = ds
             self._ex = ThreadPoolExecutor(max_workers=1)
             self._pending = None
             return
         self._w = NetCDFWriter(path)
+        self._h5 = self._w._f
         _def_output_dims(self._w, link_ids, query_times, state_ids)
         if state_ids is not None:
             shape = (s_count, n_q, len(state_ids))
@@ -438,8 +438,7 @@ class WindowedVarWriter:
         if self._pending is not None:
             self._pending.result()
             self._pending = None
-        f = self._w if isinstance(self._w, h5py.File) else self._w._f
-        f.flush()
+        self._h5.flush()
 
     def close(self) -> None:
         # Shutdown/close ALWAYS run: re-raising a failed pending write before
@@ -499,3 +498,80 @@ def write_dense_csv(
 def _fmt_g(v: float) -> str:
     # std::ostream default formatting: 6 significant digits.
     return f"{v:.6g}"
+
+
+class WindowedCSVWriter:
+    """Incremental CSV writer for windowed (chunked) runs: the row-per-query
+    layout of write_dense_csv (``time`` at fixed 8 decimals, then every
+    system's columns at 9 significant digits), appended window by window.
+
+    ``columns`` names the per-system value columns of one row (block
+    [S, Qw] or [S, Qw, N] flattens system-major to them).  ``resume=True``
+    re-opens a file from a checkpointed run; the first write truncates it
+    to the rows before its start, so windows written after the checkpoint
+    by a crashed run are replaced, never duplicated.
+    """
+
+    def __init__(self, path: str, columns, query_times: np.ndarray,
+                 resume: bool = False):
+        import os
+
+        self._path = path
+        self._qt = np.asarray(query_times, np.float64)
+        self._header = (",".join(["time", *columns]) + "\n").encode()
+        if resume:
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f"resume requested but output file is missing: {path}"
+                )
+            with open(path, "rb") as f:
+                if f.readline() != self._header:
+                    raise ValueError(
+                        f"resume header mismatch for {path}: the run's "
+                        "systems/states differ from the file's"
+                    )
+                self._rows = sum(1 for _ in f)
+            self._f = open(path, "rb+")
+        else:
+            self._f = open(path, "wb")
+            self._f.write(self._header)
+            self._rows = 0
+        self._resume = resume
+
+    def write(self, q0: int, block) -> None:
+        """Append time rows [q0, q0+Qw) (block: [S, Qw(, N)])."""
+        block = np.asarray(block, np.float64)
+        if self._resume:
+            self._resume = False
+            if q0 > self._rows:
+                raise ValueError(
+                    f"resume gap in {self._path}: file has {self._rows} rows, "
+                    f"run continues at row {q0}"
+                )
+            self._f.seek(0)
+            keep = len(self._f.readline())
+            for _ in range(q0):
+                keep += len(self._f.readline())
+            self._f.seek(keep)
+            self._f.truncate()
+            self._rows = q0
+        if q0 != self._rows:
+            raise ValueError(f"{self._path}: rows must be written in order")
+        n_q = block.shape[1]
+        rows = np.moveaxis(block, 1, 0).reshape(n_q, -1)
+        table = np.column_stack([self._qt[q0:q0 + n_q], rows])
+        np.savetxt(self._f, table, fmt=["%.8f"] + ["%.9g"] * rows.shape[1],
+                   delimiter=",")
+        self._rows += n_q
+
+    def flush(self) -> None:
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,32 +1,22 @@
-"""Pallas TPU kernel: fused batched Radau IIA (implicit) integration.
+"""Pallas kernel (Triton route): fused batched Radau IIA (implicit) integration.
 
-Companion to rk45_pallas for the stiff subset: per (rows x 128)-lane tile the
-ENTIRE t0->tf implicit integration runs in one kernel with VMEM-resident
-state.  The 3N x 3N simplified-Newton system is solved in the eigenbasis of
-A^{-1} (RADAU5's linear algebra, tableau._radau_eig): one real and one
-complex N x N unpivoted Doolittle LU per attempt, held as separate (R, 128)
-lane-vectors so every lane factorizes simultaneously on the VPU — ~5x fewer
-factorization FLOPs than the (3N)^2 LU (the CUDA reference does one scalar
-15x15 per thread, small_lu.cuh:13-40).
+Companion to rk45_pallas for the stiff subset, in the reference's shape
+(radau_kernel.cu:20-140: one CUDA thread per stiff system with a per-thread
+LU solve): one lane per system in 1-D blocks, the ENTIRE t0->tf implicit
+integration in one kernel with the state in registers.  The 3N x 3N
+simplified-Newton system is solved in the eigenbasis of A^{-1} (RADAU5's
+linear algebra, tableau._radau_eig): one real and one complex N x N unpivoted
+Doolittle LU per attempt, unrolled per lane — ~5x fewer factorization FLOPs
+than the (3N)^2 LU the reference factors (small_lu.cuh:13-40).
 
-Numerics follow tiger_tpu.solver.radau with ONE further deliberate
-divergence, noted here: the Jacobian is evaluated ONCE per attempted step at
-(t, y) — the standard simplified-Newton of production Radau codes (Hairer's
-RADAU5) — rather than re-evaluated at every stage point on every Newton
-iteration (radau_step_dense.cuh:96-129), which would cost 6x more RHS
-evaluations for no accuracy benefit on these mild Jacobians.  The embedded
-error weights and step controller match SolverConfig.radau_error_mode.
-Cross-STEP factor reuse (RADAU5's full economics) exists behind
-SolverConfig.radau_factor_reuse — scratch-ref factors, tile-gated refresh,
-per-lane n_fact accounting — but defaults OFF: a measured negative on this
-workload (DESIGN.md round-5 findings; tile gates saturate and the
-factorization share is too small post-eigenbasis).
-
-All the Mosaic workarounds from rk45_pallas apply (i32 mask algebra, varying
-carry init, refs for dynamic indexing, 2-D-only state), and the same
-query-windowed pipeline: when the dense block cannot fit VMEM next to the
-(3N)^2 Newton matrix, the run is split at query times and one compiled
-kernel is lax.scan-ed over sub-intervals carrying (y, h) — see _plan_tiles.
+Numerics follow tiger_tpu.solver.radau with ONE deliberate divergence: the
+Jacobian is evaluated ONCE per attempted step at (t, y) — the standard
+simplified Newton of production Radau codes (Hairer's RADAU5) — rather than
+at every stage point on every Newton iteration (radau_step_dense.cuh:96-129).
+The embedded error weights and step controller match
+SolverConfig.radau_error_mode.  Cross-step factor reuse
+(SolverConfig.radau_factor_reuse) carries the factors across attempts and
+refreshes them when any lane of the block votes for it.
 """
 
 from __future__ import annotations
@@ -39,94 +29,27 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tiger_tpu.forcing import ForcingSet
-from tiger_tpu.kernels.rk45_pallas import LANES, _gather_forcings, _zoh_step_cap
+from tiger_tpu.forcing import ForcingSet, ZOH_SNAP, zoh_step_cap
+from tiger_tpu.kernels.rk45_pallas import (
+    block_lanes,
+    check_sorted_queries,
+    compiler_params,
+    fill_dense,
+    gather_forcings,
+    init_dense,
+    nan_max,
+    pad_lanes,
+)
 from tiger_tpu.solver import tableau
 from tiger_tpu.solver.config import SolverConfig
 from tiger_tpu.solver.radau import RadauResult, RadauStats
 
-_VMEM_BUDGET = 9 * 2**20
+#: Lanes per block: a lane holds >150 live f32 values, so blocks are kept
+#: small enough that a stiff straggler holds back few neighbours; see
+#: PERF.md for the measurement behind the choice.
+BLOCK = 8
 _F32_EPS = float(np.finfo(np.float32).eps)
-
-
-def _newton_region(n_eq: int) -> int:
-    """Per-lane f32 count of the eigenbasis Newton working set: the CARRIED
-    factors (real 25 + complex 50 + diag inverses 15 + h_fact, ~3 N^2 + 2 N,
-    live across while iterations under radau_factor_reuse), the refresh-path
-    temporaries (FD Jacobian N^2 + in-progress elimination rows), and the
-    radau5 error-mode live vectors (defect, e_vecs, retry f_p/b2/e2, ~5 N —
-    previously unbudgeted; they ride inside the 12*n_stack term)."""
-    n_stack = 3 * n_eq
-    return 9 * n_eq * n_eq + 12 * n_stack + 80
-
-
-def _per_lane_bytes(qp: int, n_eq: int, t_forc: int, n_params: int) -> int:
-    """Per-lane VMEM estimate: dense block counted twice (Pallas double-
-    buffers the output block across grid steps) plus the Newton region
-    (_newton_region), stage/scratch values, forcings and params."""
-    return 4 * (2 * qp * n_eq + t_forc + n_params + _newton_region(n_eq))
-
-
-def _tile_row_candidates() -> tuple:
-    """Tile heights to try, biggest first (TT_RADAU_TILE_ROWS pins one for
-    perf experiments).
-
-    Capped at 16 rows: Mosaic compile time of the eigenbasis Newton body
-    grows superlinearly with tile height (~minutes at 8-16 rows, >30 min at
-    64 — the one fully-unrolled while body becomes a multi-10k-instruction
-    block), and the measured throughput gap between 16- and 64-row tiles is
-    far smaller than the compile-time cliff."""
-    import os
-
-    override = int(os.environ.get("TT_RADAU_TILE_ROWS", "0"))
-    return (override,) if override else (16, 8)
-
-
-def _query_window_size(n_eq: int, t_forc: int, n_params: int, rows: int) -> int:
-    """Max queries per window so an ``rows``-row tile fits the VMEM budget.
-
-    May return <= 0 (infeasible) — callers must not clamp, or the planner's
-    actionable 'stream the time dimension' error becomes unreachable."""
-    per_lane_budget = _VMEM_BUDGET // (4 * rows * LANES)
-    return int(
-        (per_lane_budget - t_forc - n_params - _newton_region(n_eq)) // (2 * n_eq)
-    )
-
-
-def _plan_tiles(s_count, q_total, n_eq, t_forc, n_params):
-    """Pick (tile_rows, q_chunk|None): BIGGEST tile first, windowing queries
-    if that is what it takes.
-
-    Same latency-bound rationale as rk45_pallas._plan_tiles — the implicit
-    kernel's dependent chain (unrolled 15x15 LU + Newton sweeps) is even
-    longer than the explicit one's, so taller tiles hide more of it; the
-    Newton matrix (225 f32/lane for 5 equations) is what makes tall tiles
-    need query windowing sooner than RK45.
-    """
-    cap = 8
-    while cap < 64 and cap * LANES < s_count:
-        cap *= 2
-    qp = max(q_total, 1)
-    for rows in _tile_row_candidates():
-        if rows > cap:
-            continue
-        if _per_lane_bytes(qp, n_eq, t_forc, n_params) * rows * LANES <= _VMEM_BUDGET:
-            return rows, None
-        qc = _query_window_size(n_eq, t_forc, n_params, rows)
-        if q_total > 0 and qc >= 8:
-            return rows, qc
-    rows = _tile_row_candidates()[-1]
-    if q_total > 0:
-        qc = _query_window_size(n_eq, t_forc, n_params, rows)
-        if qc >= 1:
-            return rows, qc
-    raise ValueError(
-        f"forcing/params/Newton working set alone exceeds the kernel VMEM "
-        f"budget (t_forc={t_forc}, n_params={n_params}, n_eq={n_eq}); stream "
-        "the time dimension with tiger_tpu.chunked.solve_chunked"
-    )
 
 
 class _Carry(NamedTuple):
@@ -134,26 +57,25 @@ class _Carry(NamedTuple):
     t: jax.Array
     t_c: jax.Array  # Kahan compensation
     h: jax.Array
-    y: tuple  # N_EQ x (R, 128)
+    y: tuple  # N_EQ x (B,)
     reject: jax.Array  # consecutive rejections (bail-out -> failed)
-    failed: jax.Array  # i32 0/1
+    failed: jax.Array  # bool
     n_acc: jax.Array
     n_rej: jax.Array
     n_att: jax.Array
-    n_swp: jax.Array  # (R, 128) i32: Newton sweeps each lane sat through
-    n_fct: jax.Array  # (R, 128) i32: factorizations paid (tile-gated refresh)
-    refresh: jax.Array  # (R, 128) i32: lane wants fresh factors next attempt
+    n_swp: jax.Array  # Newton sweeps each lane sat through
+    n_fct: jax.Array  # factorizations paid
+    nq: jax.Array  # dense-output cursor
+    nqt: jax.Array
+    fact: tuple  # carried eigenbasis factors (cfg.radau_factor_reuse only)
+    refresh: jax.Array  # lane wants fresh factors next attempt
     pred: tuple  # Newton-predictor state (cfg.radau_predictor, else empty):
-    #              (h_prev, z_base, have_i, *z_prev[n_stack]) — the previous
-    #              attempt's converged stage slopes and the theta offset of
-    #              the next step against that collocation polynomial
+    #              (h_prev, z_base, have, *z_prev[3N])
 
 
-def _make_kernel(model, param_fields, meta, t0, tf, n_eq, q_total, cfg: SolverConfig,
-                 interpret: bool = False):
-    ra = tableau.RADAU_A  # (3,3) numpy
-    rc = tableau.RADAU_C
-    rb = tableau.RADAU_B
+def _make_kernel(model, param_fields, meta, t0, tf, n_eq, q_total, block,
+                 cfg: SolverConfig):
+    ra, rc, rb = tableau.RADAU_A, tableau.RADAU_C, tableau.RADAU_B
     re = tableau.RADAU_E3 if cfg.radau_error_mode == "embedded3" else tableau.RADAU_E
     rw = tableau.RADAU_DENSE  # (3,3): I_s(theta) monomial coefficients
     expo = {"embedded3": 1.0 / 3.0, "radau5": 0.25, "reference": 0.2}[
@@ -161,253 +83,169 @@ def _make_kernel(model, param_fields, meta, t0, tf, n_eq, q_total, cfg: SolverCo
     ]
     radau5_err = cfg.radau_error_mode == "radau5"
     n_stack = 3 * n_eq
-
-    from tiger_tpu.forcing import ZOH_SNAP
-
+    nsq = n_eq * n_eq
     snap = ZOH_SNAP if (cfg.forcing_step_align and meta is not None) else 0.0
+    i32 = jnp.int32
+    gam = float(tableau.RADAU_EIG_GAMMA)
+    alp = float(tableau.RADAU_EIG_ALPHA)
+    bet = float(tableau.RADAU_EIG_BETA)
+    v1 = [float(tableau.RADAU_EIG_V[s, 0].real) for s in range(3)]
+    v2r = [float(tableau.RADAU_EIG_V[s, 1].real) for s in range(3)]
+    v2i = [float(tableau.RADAU_EIG_V[s, 1].imag) for s in range(3)]
+    p1 = [float(tableau.RADAU_EIG_P[0, j].real) for j in range(3)]
+    p2r = [float(tableau.RADAU_EIG_P[1, j].real) for j in range(3)]
+    p2i = [float(tableau.RADAU_EIG_P[1, j].imag) for j in range(3)]
+    # Convergence: the reference's absolute max|delta| < newton_tol OR
+    # RADAU5's scaled solution-units criterion (mirror of solver/radau.py);
+    # the absolute exit alone is unreachable in float32 for stiff lanes.
+    kappa = max(10.0 * _F32_EPS / cfg.rtol, min(0.03, float(np.sqrt(cfg.rtol))))
+    # dtype-aware FD step: the reference's sqrt(1e-16)=1e-8
+    # (radau_step_dense.cuh:20) is below float32 resolution.
+    fd_eps = float(np.sqrt(_F32_EPS))
 
-    def kernel(bounds_smem, qt_smem, qt_ref, y0_ref, h0_ref, params_ref, forc_ref,
-               yf_ref, dense_ref, failed_ref, stats_ref, hout_ref, *scratch):
-        # scratch[0] (radau_factor_reuse only): the eigenbasis factor block
-        # [1 + 3 N^2 + 3 N, R, 128] — h_fact, mr, mr_inv_diag, cre, cim,
-        # c_invd re/im.  A VMEM scratch REF, not a while-loop carry: carrying
-        # the ~91 lane-vectors functionally costs a phi-copy of ~0.7 MB per
-        # while iteration (measured 11% end-to-end before this design).
-        fact_ref = scratch[0] if scratch else None
-        dtype = y0_ref.dtype
-        # Window bounds are DYNAMIC scalars (SMEM) so the query-windowed
-        # pipeline can lax.scan one compiled kernel over sub-intervals;
-        # unwindowed calls pass (t0, tf).
-        t0_s = bounds_smem[0, 0]
-        tf_s = bounds_smem[0, 1]
-        shift_s = bounds_smem[0, 2]  # absolute-time shift for the model rhs
-        y0 = tuple(y0_ref[i] for i in range(n_eq))
-        qt2 = qt_ref[...] if q_total > 0 else None
-        r = y0[0].shape[0]
-        shp = (r, LANES)
-        i32 = jnp.int32
-
-        p_base = {name: params_ref[i] for i, name in enumerate(param_fields)}
+    def kernel(shift_ref, qt_ref, y0_ref, h0_ref, params_ref, forc_ref,
+               yf_ref, failed_ref, stats_ref, *dense):
+        dense_ref = dense[0] if dense else None
+        sl, lanes = block_lanes(block)
+        y0 = tuple(y0_ref[i, sl] for i in range(n_eq))
+        shift = shift_ref[0]
+        p_base = {name: params_ref[k, sl] for k, name in enumerate(param_fields)}
         if param_fields and hasattr(model, "derived_params"):
             p_base = model.derived_params(p_base)  # hoisted loop invariants
 
         def rhs(t, y, f_vals):
-            return model.rhs_tuple(t + shift_s, y, p_base, f_vals)
+            return model.rhs_tuple(t + shift, y, p_base, f_vals)
 
-        def b2i(m):
-            return m.astype(i32)
+        if q_total > 0:
+            init_dense(dense_ref, qt_ref, sl, y0, t0, q_total, cfg.fill_t0_queries)
 
-        # dense init (same semantics as the RK45 kernel)
-        if q_total > 0 and cfg.fill_t0_queries:
-            n_pre = jnp.sum((qt2 <= t0_s).astype(i32))
-        else:
-            n_pre = jnp.zeros((), i32)
-        zero2d = jnp.zeros(shp, dtype)
+        zf = jnp.zeros((block,), jnp.float32)
+        zi = jnp.zeros((block,), i32)
 
-        def init_row(qi, _):
-            pre = qi < n_pre
-            for ci in range(n_eq):
-                dense_ref[qi, ci] = jnp.where(pre, y0[ci], zero2d)
-            return 0
+        def compute_factors(t, y, f0, f_vals, h_eff):
+            """FD Jacobian at (t, y) + the transformed Newton factorization
+            (RADAU5 linear algebra, H&W vol II IV.8): (I - h A (x) J) is
+            similar to blockdiag(gamma I - h J, (alpha+beta i) I - h J,
+            conj), so ONE real and ONE complex n x n unpivoted LU replace
+            the (3N)^2 one.  Returns the flat factor tuple (h_fact,
+            mr[N*N], mr_inv_diag[N], cre[N*N], cim[N*N], c_invd_re[N],
+            c_invd_im[N])."""
+            jac = [[None] * n_eq for _ in range(n_eq)]
+            for j in range(n_eq):
+                h_eps = fd_eps * jnp.maximum(1.0, jnp.abs(y[j]))
+                y_pert = tuple(y[i] + h_eps if i == j else y[i] for i in range(n_eq))
+                f_p = rhs(t, y_pert, f_vals)
+                for i in range(n_eq):
+                    jac[i][j] = (f_p[i] - f0[i]) / h_eps
+            mr = [
+                [(gam - h_eff * jac[i][j]) if i == j else (-h_eff) * jac[i][j]
+                 for j in range(n_eq)]
+                for i in range(n_eq)
+            ]
+            mr_inv = [None] * n_eq
+            for k in range(n_eq):
+                mr_inv[k] = 1.0 / mr[k][k]
+                for i in range(k + 1, n_eq):
+                    m_ik = mr[i][k] * mr_inv[k]
+                    mr[i][k] = m_ik
+                    for j in range(k + 1, n_eq):
+                        mr[i][j] = mr[i][j] - m_ik * mr[k][j]
+            cre = [
+                [(alp - h_eff * jac[i][j]) if i == j else (-h_eff) * jac[i][j]
+                 for j in range(n_eq)]
+                for i in range(n_eq)
+            ]
+            cim = [[(zf + bet) if i == j else zf for j in range(n_eq)]
+                   for i in range(n_eq)]
+            c_invd = [None] * n_eq  # (re, im) of 1 / diag
+            for k in range(n_eq):
+                inv_den = 1.0 / (cre[k][k] * cre[k][k] + cim[k][k] * cim[k][k])
+                c_invd[k] = (cre[k][k] * inv_den, -cim[k][k] * inv_den)
+                for i in range(k + 1, n_eq):
+                    m_re = cre[i][k] * c_invd[k][0] - cim[i][k] * c_invd[k][1]
+                    m_im = cre[i][k] * c_invd[k][1] + cim[i][k] * c_invd[k][0]
+                    cre[i][k], cim[i][k] = m_re, m_im
+                    for j in range(k + 1, n_eq):
+                        cre[i][j] = cre[i][j] - (m_re * cre[k][j] - m_im * cim[k][j])
+                        cim[i][j] = cim[i][j] - (m_re * cim[k][j] + m_im * cre[k][j])
+            flat = [h_eff + zf]
+            flat += [mr[i][j] for i in range(n_eq) for j in range(n_eq)]
+            flat += mr_inv
+            flat += [cre[i][j] for i in range(n_eq) for j in range(n_eq)]
+            flat += [cim[i][j] for i in range(n_eq) for j in range(n_eq)]
+            flat += [c_invd[k][0] for k in range(n_eq)]
+            flat += [c_invd[k][1] for k in range(n_eq)]
+            return tuple(flat)
 
-        lax.fori_loop(0, max(q_total, 1), init_row, 0)
-
-        vz = y0[0] * 0.0
-        vzi = vz.astype(i32)
+        n_fact = 1 + 3 * nsq + 3 * n_eq
         carry0 = _Carry(
             alive=jnp.ones((), i32),
-            t=vz + t0_s,
-            t_c=vz,
-            h=h0_ref[1],  # row 1 = current step size (carried across windows)
+            t=zf + t0,
+            t_c=zf,
+            h=h0_ref[sl],
             y=y0,
-            reject=vzi,
-            failed=vzi,
-            n_acc=vzi,
-            n_rej=vzi,
-            n_att=vzi,
-            n_swp=vzi,
-            n_fct=vzi,
-            # Every lane votes refresh before the first attempt (the factor
-            # scratch holds garbage until the first store).  The scratch is
-            # NOT carried across query windows — each window's first attempt
-            # refactorizes once.
-            refresh=vzi + 1,
-            # Predictor state starts empty (have=0 -> f0-tile start values);
-            # NOT carried across query windows — the first attempt of each
-            # window re-seeds from f0, which costs a few extra sweeps once.
+            reject=zi,
+            failed=zi > 0,
+            n_acc=zi,
+            n_rej=zi,
+            n_att=zi,
+            n_swp=zi,
+            n_fct=zi,
+            nq=zi,
+            nqt=(zf + qt_ref[0]) if q_total > 0 else zf + jnp.inf,
+            fact=tuple(zf for _ in range(n_fact)) if cfg.radau_factor_reuse else (),
+            # Every lane votes refresh before the first attempt.
+            refresh=zi + 1,
             pred=(
-                (vz + 1.0, vz, vzi) + tuple(vz for _ in range(n_stack))
+                (zf + 1.0, zf, zi > 0) + tuple(zf for _ in range(n_stack))
                 if cfg.radau_predictor
                 else ()
             ),
         )
 
-        def cond(c):
-            return c.alive > 0
-
         def body(c):
-            act_i = (
-                b2i(c.t < tf_s) * b2i(c.failed == 0) * b2i(c.n_att < cfg.max_steps)
-            )
+            act = (c.t < tf) & ~c.failed & (c.n_att < cfg.max_steps)
             t, y = c.t, c.y
-            h_eff = jnp.where(t + c.h > tf_s, tf_s - t, c.h)
+            h_eff = jnp.where(t + c.h > tf, tf - t, c.h)
             if snap:
-                # ZOH boundary alignment (SolverConfig.forcing_step_align).
-                h_eff = _zoh_step_cap(meta, t, h_eff)
-
+                h_eff = zoh_step_cap(meta, t, h_eff)
             f_vals = None
             if meta is not None:
-                # Active-lane range reduction (see rk45_pallas): a failed
-                # lane's frozen t must not widen the gather's scan window.
-                t_act_min = jnp.min(jnp.where(act_i > 0, t, tf_s))
-                t_act_max = jnp.max(jnp.where(act_i > 0, t, t0_s))
-                f_vals = _gather_forcings(
-                    forc_ref, meta, t, dtype, t_act_min, t_act_max, snap=snap
-                )
-
+                f_vals = gather_forcings(forc_ref, meta, t, lanes, snap)
             f0 = rhs(t, y, f_vals)
 
-            gam = float(tableau.RADAU_EIG_GAMMA)
-            alp = float(tableau.RADAU_EIG_ALPHA)
-            bet = float(tableau.RADAU_EIG_BETA)
-            v1 = [float(tableau.RADAU_EIG_V[s, 0].real) for s in range(3)]
-            v2r = [float(tableau.RADAU_EIG_V[s, 1].real) for s in range(3)]
-            v2i = [float(tableau.RADAU_EIG_V[s, 1].imag) for s in range(3)]
-            p1 = [float(tableau.RADAU_EIG_P[0, j].real) for j in range(3)]
-            p2r = [float(tableau.RADAU_EIG_P[1, j].real) for j in range(3)]
-            p2i = [float(tableau.RADAU_EIG_P[1, j].imag) for j in range(3)]
-
-            def compute_factors():
-                """FD Jacobian at (t, y) + the transformed Newton
-                factorization (RADAU5 linear algebra, H&W vol II IV.8;
-                tableau._radau_eig): (I - h A (x) J) is similar to
-                blockdiag(gamma I - h J, (alpha+beta i) I - h J, conj), so
-                ONE real and ONE complex n x n unpivoted Doolittle LU
-                replace the (3N)^2 one — ~5x fewer factorization FLOPs at
-                N=5 (the CUDA reference refactorizes the full 15x15 every
-                Newton iteration, radau_step_dense.cuh:90-141).  All
-                lane-parallel: each matrix entry is an (R, 128) lane-vector;
-                complex entries are (re, im) pairs.  Returns the flat
-                factor tuple (h_fact, mr[N*N], mr_inv_diag[N], cre[N*N],
-                cim[N*N], c_invd_re[N], c_invd_im[N]) — stored in the
-                fact_ref VMEM scratch under radau_factor_reuse."""
-                # dtype-aware FD step: the reference's sqrt(1e-16)=1e-8
-                # (radau_step_dense.cuh:20) is below float32 resolution —
-                # the perturbation would vanish and the Jacobian degenerate.
-                eps = float(np.sqrt(np.finfo(np.dtype(dtype.name)).eps))
-                jac = [[None] * n_eq for _ in range(n_eq)]
-                for j in range(n_eq):
-                    h_eps = eps * jnp.maximum(1.0, jnp.abs(y[j]))
-                    y_pert = tuple(
-                        y[i] + (h_eps if i == j else 0.0) for i in range(n_eq)
-                    )
-                    f_p = rhs(t, y_pert, f_vals)
-                    for i in range(n_eq):
-                        jac[i][j] = (f_p[i] - f0[i]) / h_eps
-
-                # Real factor M_r = gamma I - h J.
-                mr = [
-                    [
-                        (gam - h_eff * jac[i][j]) if i == j else (-h_eff) * jac[i][j]
-                        for j in range(n_eq)
-                    ]
-                    for i in range(n_eq)
-                ]
-                mr_inv = [None] * n_eq
-                for k in range(n_eq):
-                    mr_inv[k] = 1.0 / mr[k][k]
-                    for i in range(k + 1, n_eq):
-                        m_ik = mr[i][k] * mr_inv[k]
-                        mr[i][k] = m_ik
-                        for j in range(k + 1, n_eq):
-                            mr[i][j] = mr[i][j] - m_ik * mr[k][j]
-
-                # Complex factor M_c = (alpha + beta i) I - h J.
-                cre = [
-                    [
-                        (alp - h_eff * jac[i][j]) if i == j else (-h_eff) * jac[i][j]
-                        for j in range(n_eq)
-                    ]
-                    for i in range(n_eq)
-                ]
-                cim = [
-                    [(vz + bet) if i == j else vz for j in range(n_eq)]
-                    for i in range(n_eq)
-                ]
-                c_invd = [None] * n_eq  # (re, im) of 1 / diag
-                for k in range(n_eq):
-                    inv_den = 1.0 / (cre[k][k] * cre[k][k] + cim[k][k] * cim[k][k])
-                    c_invd[k] = (cre[k][k] * inv_den, -cim[k][k] * inv_den)
-                    for i in range(k + 1, n_eq):
-                        m_re = cre[i][k] * c_invd[k][0] - cim[i][k] * c_invd[k][1]
-                        m_im = cre[i][k] * c_invd[k][1] + cim[i][k] * c_invd[k][0]
-                        cre[i][k], cim[i][k] = m_re, m_im
-                        for j in range(k + 1, n_eq):
-                            cre[i][j] = cre[i][j] - (m_re * cre[k][j] - m_im * cim[k][j])
-                            cim[i][j] = cim[i][j] - (m_re * cim[k][j] + m_im * cre[k][j])
-
-                flat = [h_eff + vz]
-                flat += [mr[i][j] for i in range(n_eq) for j in range(n_eq)]
-                flat += mr_inv
-                flat += [cre[i][j] for i in range(n_eq) for j in range(n_eq)]
-                flat += [cim[i][j] for i in range(n_eq) for j in range(n_eq)]
-                flat += [c_invd[k][0] for k in range(n_eq)]
-                flat += [c_invd[k][1] for k in range(n_eq)]
-                return tuple(flat)
-
-            nsq = n_eq * n_eq
             if cfg.radau_factor_reuse:
-                # Cross-step factor reuse (SolverConfig.radau_factor_reuse):
-                # recompute Jacobian + both LUs only on iterations where some
-                # active lane voted for a refresh; otherwise the scratch-
-                # resident factors serve as a quasi-Newton matrix (the
-                # residual bvec is exact, so the fixed point is unchanged —
-                # staleness only slows contraction, which the already-paid
-                # unrolled sweeps absorb and honest rejection backstops).
-                # The h-divergence guard compares THIS attempt's effective h
-                # (after the tf clamp and the ZOH step cap) with the factored
-                # h: voting on the controller's raw h_new at the end of the
-                # previous attempt fired on ~94% of iterations, because a
-                # cap-pinned lane's carried h can sit 10x above the h_eff
-                # that every one of its attempts actually uses.
-                h_fact_prev = fact_ref[0]
-                ratio0 = h_eff / h_fact_prev
+                # Recompute Jacobian + both LUs only when some active lane
+                # voted for a refresh: Newton contraction slowed or failed
+                # last attempt, or h left the safety band around the
+                # factored h (SolverConfig.radau_factor_reuse).
+                ratio0 = h_eff / c.fact[0]
                 band_bad = (
-                    b2i(ratio0 < cfg.radau_reuse_lo)
-                    + b2i(ratio0 > cfg.radau_reuse_hi)
-                    + b2i(jnp.isnan(ratio0))
+                    (ratio0 < cfg.radau_reuse_lo)
+                    | (ratio0 > cfg.radau_reuse_hi)
+                    | jnp.isnan(ratio0)
                 )
                 refresh_now = jnp.max(
-                    act_i * jnp.minimum(c.refresh + band_bad, 1)
+                    (act & ((c.refresh > 0) | band_bad)).astype(i32)
                 )
-
-                @pl.when(refresh_now > 0)
-                def _store_factors():
-                    flat = compute_factors()
-                    for k, v in enumerate(flat):
-                        fact_ref[k] = v
-
-                fact = [fact_ref[k] for k in range(1 + 3 * nsq + 3 * n_eq)]
+                fact = lax.cond(
+                    refresh_now > 0,
+                    lambda: compute_factors(t, y, f0, f_vals, h_eff),
+                    lambda: c.fact,
+                )
             else:
                 refresh_now = jnp.ones((), i32)
-                fact = compute_factors()
+                fact = compute_factors(t, y, f0, f_vals, h_eff)
 
-            # Unpack the flat factor block (fresh or reused).
             h_fact = fact[0]
-            mr = [
-                [fact[1 + i * n_eq + j] for j in range(n_eq)] for i in range(n_eq)
-            ]
+            mr = [[fact[1 + i * n_eq + j] for j in range(n_eq)] for i in range(n_eq)]
             mr_inv_diag = [fact[1 + nsq + k] for k in range(n_eq)]
-            _o = 1 + nsq + n_eq
-            cre = [
-                [fact[_o + i * n_eq + j] for j in range(n_eq)] for i in range(n_eq)
-            ]
-            cim = [
-                [fact[_o + nsq + i * n_eq + j] for j in range(n_eq)]
-                for i in range(n_eq)
-            ]
-            _o2 = _o + 2 * nsq
-            c_invd = [(fact[_o2 + k], fact[_o2 + n_eq + k]) for k in range(n_eq)]
+            o = 1 + nsq + n_eq
+            cre = [[fact[o + i * n_eq + j] for j in range(n_eq)] for i in range(n_eq)]
+            cim = [[fact[o + nsq + i * n_eq + j] for j in range(n_eq)]
+                   for i in range(n_eq)]
+            o2 = o + 2 * nsq
+            c_invd = [(fact[o2 + k], fact[o2 + n_eq + k]) for k in range(n_eq)]
 
             def real_solve(bvec):
                 x = list(bvec)
@@ -439,415 +277,250 @@ def _make_kernel(model, param_fields, meta, t0, tf, n_eq, q_total, cfg: SolverCo
             def solve_newton(bvec):
                 """(I - h A (x) J)^{-1} b via the eigenbasis: u = (P (x) I) b,
                 one real + one complex n x n solve, dZ = V w + conj."""
-                u1 = [
-                    p1[0] * bvec[i] + p1[1] * bvec[n_eq + i] + p1[2] * bvec[2 * n_eq + i]
-                    for i in range(n_eq)
-                ]
-                ucr = [
-                    p2r[0] * bvec[i] + p2r[1] * bvec[n_eq + i] + p2r[2] * bvec[2 * n_eq + i]
-                    for i in range(n_eq)
-                ]
-                uci = [
-                    p2i[0] * bvec[i] + p2i[1] * bvec[n_eq + i] + p2i[2] * bvec[2 * n_eq + i]
-                    for i in range(n_eq)
-                ]
-                w1 = real_solve(u1)
-                wr, wi = cplx_solve(ucr, uci)
+                def mix(p):
+                    return [p[0] * bvec[i] + p[1] * bvec[n_eq + i]
+                            + p[2] * bvec[2 * n_eq + i] for i in range(n_eq)]
+
+                w1 = real_solve(mix(p1))
+                wr, wi = cplx_solve(mix(p2r), mix(p2i))
                 return [
                     v1[s] * w1[i] + 2.0 * (v2r[s] * wr[i] - v2i[s] * wi[i])
                     for s in range(3)
                     for i in range(n_eq)
                 ]
 
-            # ---- Newton iteration on stage slopes Z (init f0) ----
-            # UNROLLED masked sweeps, by measurement: a tile-wide
-            # early-exit while_loop was tried and is ~10% SLOWER end to end
-            # (164M vs 182M steps/s on the v5e bench) because the step
-            # controller drives h to the simplified-Newton convergence limit
-            # — at the operating point lanes genuinely use 9-10 sweeps
-            # (newton_sweeps_per_attempt ~= 9.5, and work per integrated
-            # minute is minimized there), so the exit never fires and the
-            # loop carry only costs Mosaic scheduling freedom.  Convergence
-            # masking still freezes each lane's z once its delta passes the
-            # f32-aware tolerance (the configured absolute newton_tol sits
-            # below f32 delta resolution, so a relative rung at 8*eps*|z| is
-            # added); per-lane unconverged-sweep counts land in stats row 3.
             if cfg.radau_predictor:
                 # RADAU5's extrapolated Newton start in VALUE space (mirror
-                # of solver/radau.py): predict the stage VALUES from the
-                # previous attempt's collocation polynomial, then map the
-                # increments through A^{-1} to the slope unknowns —
-                # extrapolating the slopes directly is ill-conditioned for
-                # stiff lanes (round-3 regression).  theta = base + c_i *
-                # h/h_prev: base 1 after an accept, 0 after a reject.
-                # Lanes without a valid CONVERGED previous solution fall
-                # back to the f0 tile.
-                h_prev, z_base, have_i = c.pred[0], c.pred[1], c.pred[2]
+                # of solver/radau.py): stage values predicted from the
+                # previous attempt's collocation polynomial, mapped through
+                # A^{-1} to the slope unknowns; lanes without a converged
+                # previous solution (or too far past it) start from f0.
+                h_prev, z_base, have = c.pred[0], c.pred[1], c.pred[2]
                 zp = c.pred[3:]
                 ratio = h_eff / h_prev
-                # Extrapolation guard (mirror of solver/radau.py): far past
-                # the previous polynomial the cubic blows up and a garbage
-                # start makes Newton diverge — fall back to f0.
-                use_i = have_i * b2i(ratio <= 2.0)
-                cs = [float(rc[s]) for s in range(3)]
+                use = have & (ratio <= 2.0)
                 base2 = z_base * z_base
                 base3 = base2 * z_base
-                # i_th[s][i] = I_s(theta_i) - I_s(base)
                 i_th = [[None] * 3 for _ in range(3)]
                 for i in range(3):
-                    th = z_base + cs[i] * ratio
+                    th = z_base + float(rc[i]) * ratio
                     th2 = th * th
-                    th3 = th2 * th
                     for s in range(3):
                         i_th[s][i] = (
                             float(rw[s, 0]) * (th - z_base)
                             + float(rw[s, 1]) * (th2 - base2)
-                            + float(rw[s, 2]) * (th3 - base3)
+                            + float(rw[s, 2]) * (th2 * th - base3)
                         )
                 inv_a = tableau.RADAU_A_INV
                 scale = h_prev / h_eff
                 z = []
                 for i in range(3):
                     for k in range(n_eq):
-                        acc = None
+                        acc = zf
                         for j in range(3):
-                            vjk = (
-                                i_th[0][j] * zp[0 * n_eq + k]
-                                + i_th[1][j] * zp[1 * n_eq + k]
-                                + i_th[2][j] * zp[2 * n_eq + k]
-                            )
-                            term = float(inv_a[i, j]) * vjk
-                            acc = term if acc is None else acc + term
-                        z.append(jnp.where(use_i > 0, scale * acc, f0[k]))
+                            vjk = (i_th[0][j] * zp[k] + i_th[1][j] * zp[n_eq + k]
+                                   + i_th[2][j] * zp[2 * n_eq + k])
+                            acc = acc + float(inv_a[i, j]) * vjk
+                        z.append(jnp.where(use, scale * acc, f0[k]))
             else:
                 z = [f0[i % n_eq] for i in range(n_stack)]  # Z[s*n_eq+i]
-            conv_i = jnp.minimum(1 - act_i + vzi, 1)  # inactive lanes exempt
-            n_swp_step = vzi
-            # Convergence test, two exits OR-ed (mirror of solver/radau.py):
-            # the reference's absolute max|delta| < newton_tol, and RADAU5's
-            # SCALED solution-units criterion max h|delta|/(atol+rtol|y|) <
-            # kappa — the absolute exit alone is unreachable in float32 for
-            # stiff lanes (delta rounding floor ~ eps*|z|), which under
-            # newton_reject_unconverged would death-spiral h.
-            kappa = max(
-                10.0 * _F32_EPS / cfg.rtol,
-                min(0.03, float(np.sqrt(cfg.rtol))),
-            )
-            tol_y = tuple(
-                cfg.atol + cfg.rtol * jnp.abs(y[i]) for i in range(n_eq)
-            )
 
-            def sweep(z, conv_i, n_swp_step):
+            tol_y = tuple(cfg.atol + cfg.rtol * jnp.abs(y[i]) for i in range(n_eq))
+
+            def sweep(z, conv):
                 bvec = []
                 for s in range(3):
                     ys = list(y)
                     for j in range(3):
                         a_w = float(ra[s, j])
-                        ys = [
-                            ys[i] + (h_eff * a_w) * z[j * n_eq + i]
-                            for i in range(n_eq)
-                        ]
+                        ys = [ys[i] + (h_eff * a_w) * z[j * n_eq + i] for i in range(n_eq)]
                     fs = rhs(t + float(rc[s]) * h_eff, tuple(ys), f_vals)
                     for i in range(n_eq):
                         bvec.append(fs[i] - z[s * n_eq + i])
                 delta = solve_newton(bvec)
-                upd = (1 - conv_i).astype(dtype)
-                n_swp_step = n_swp_step + (1 - conv_i)
-                maxd = jnp.zeros(shp, dtype)
-                zmag = jnp.zeros(shp, dtype)
-                scaled = jnp.zeros(shp, dtype)
+                maxd, zmag, scaled = zf, zf, zf
                 z = list(z)
                 for a in range(n_stack):
-                    z[a] = z[a] + upd * delta[a]
+                    z[a] = jnp.where(conv, z[a], z[a] + delta[a])
                     ad = jnp.abs(delta[a])
-                    maxd = jnp.maximum(maxd, ad)
-                    scaled = jnp.maximum(scaled, ad / tol_y[a % n_eq])
-                    zmag = jnp.maximum(zmag, jnp.abs(z[a]))
+                    maxd = nan_max(maxd, ad)
+                    scaled = nan_max(scaled, ad / tol_y[a % n_eq])
+                    zmag = nan_max(zmag, jnp.abs(z[a]))
                 tol_eff = cfg.newton_tol + (8.0 * _F32_EPS) * zmag
-                done = (
-                    b2i(maxd < tol_eff)
-                    + b2i(h_eff * scaled < kappa)
-                    + b2i(jnp.isnan(maxd))
-                )
-                conv_i = jnp.minimum(jnp.maximum(conv_i, done), 1)
-                return z, conv_i, n_swp_step
+                done = (maxd < tol_eff) | (h_eff * scaled < kappa) | jnp.isnan(maxd)
+                return z, conv | done
 
-            # Unroll depth vs tile-gated tail loop: the TILE pays for its
-            # slowest lane, so unroll enough sweeps to cover the typical
-            # worst lane and run the remainder inside a while loop that
-            # usually does ZERO iterations — a looped sweep costs ~2x an
-            # unrolled one (measured), so the depth trades straggler
-            # coverage against loop entries.  The eigenbasis sweep compiles
-            # SUPERLINEARLY in unroll depth on both backends (Mosaic: >700 s
-            # at 10 sweeps vs ~5 min at 6; XLA:CPU/LLVM: >400 s at 10 vs
-            # ~15 s at 2), so full unroll is no longer reachable — 6 covers
-            # the honest-Newton-rejection operating point (~3.2
-            # sweeps/attempt) with the tail loop as straggler insurance.
-            # TT_RADAU_UNROLL overrides for perf experiments.
-            import os as _os
+            # Newton sweeps until every active lane of the block converged
+            # (inactive lanes start converged), at most newton_max_iter.
+            def ncond(s):
+                return s[0] > 0
 
-            _unroll_env = int(_os.environ.get("TT_RADAU_UNROLL", "0"))
-            if _unroll_env > 0:
-                n_unrolled = min(_unroll_env, cfg.newton_max_iter)
-            elif interpret:
-                # Interpret mode is correctness-only: take the small-block
-                # shape that LLVM compiles fastest.
-                n_unrolled = min(2, cfg.newton_max_iter)
-            else:
-                # 4 measured >= 6 at both operating points (rung 7.75 vs
-                # 7.94 us/iter at 3.2 sweeps/attempt; 131k micro 212M
-                # steps/s at 2.2 sweeps) and compiles faster.
-                n_unrolled = min(4, cfg.newton_max_iter)
-            for _ in range(n_unrolled):
-                z, conv_i, n_swp_step = sweep(z, conv_i, n_swp_step)
-            n_tail = cfg.newton_max_iter - n_unrolled
-            if n_tail > 0:
-                def tcond(s):
-                    return s[0] > 0  # scalar (vector reductions live in body)
+            def nbody(s):
+                _, it, z, conv, n_swp = s
+                n_swp = n_swp + (~conv).astype(i32)
+                z, conv = sweep(list(z), conv)
+                it = it + 1
+                alive = jnp.max((~conv).astype(i32)) * (it < cfg.newton_max_iter)
+                return alive, it, tuple(z), conv, n_swp
 
-                def tbody(s):
-                    _, it, z_t, conv_i, n_swp_step = s
-                    z2, conv2, n_swp2 = sweep(list(z_t), conv_i, n_swp_step)
-                    it = it + 1
-                    alive = jnp.max(1 - conv2) * jnp.where(it < n_tail, 1, 0)
-                    return (alive, it, tuple(z2), conv2, n_swp2)
-
-                state0 = (
-                    jnp.max(1 - conv_i),
-                    jnp.zeros((), i32),
-                    tuple(z),
-                    conv_i,
-                    n_swp_step,
-                )
-                _, _, z_t, conv_i, n_swp_step = lax.while_loop(
-                    tcond, tbody, state0
-                )
-                z = list(z_t)
+            conv0 = ~act
+            _, _, z, conv, n_swp_step = lax.while_loop(
+                ncond, nbody,
+                (jnp.max(act.astype(i32)), jnp.zeros((), i32), tuple(z), conv0, zi),
+            )
+            z = list(z)
 
             # ---- step update + error estimate ----
             y_out = list(y)
             for s in range(3):
                 for i in range(n_eq):
                     y_out[i] = y_out[i] + (h_eff * float(rb[s])) * z[s * n_eq + i]
-            tol_i = [
-                cfg.atol
-                + cfg.rtol * jnp.maximum(jnp.abs(y[i]), jnp.abs(y_out[i]))
-                for i in range(n_eq)
-            ]
-            err = jnp.zeros(shp, dtype)
+            tol_i = [cfg.atol + cfg.rtol * jnp.maximum(jnp.abs(y[i]), jnp.abs(y_out[i]))
+                     for i in range(n_eq)]
+            err = zf
             if radau5_err:
-                # RADAU5's smoothed estimate (mirror of solver/radau.py,
-                # tableau.RADAU_MU_REAL note): e = (mu/h I - J)^{-1}
-                # (f0 + sum_s EA_s Z_s).  mu IS the real eigenvalue gamma
-                # (tableau asserts it), so (mu/h I - J)^{-1} = h M_r^{-1} —
-                # the smoothed error REUSES the Newton factorization: two
-                # triangular sweeps, no extra LU.
+                # RADAU5's smoothed estimate (mirror of solver/radau.py):
+                # e = (mu/h I - J)^{-1} (f0 + sum_s EA_s Z_s), and mu IS the
+                # real eigenvalue gamma, so (mu/h I - J)^{-1} = h M_r^{-1}
+                # reuses the Newton factorization.  h_fact, not h_eff: the
+                # identity holds for the h the factors were built with.
                 ea = tableau.RADAU_ERR_EA
-                defect = [
-                    f0[i]
-                    + float(ea[0]) * z[i]
-                    + float(ea[1]) * z[n_eq + i]
-                    + float(ea[2]) * z[2 * n_eq + i]
-                    for i in range(n_eq)
-                ]
-                # h_fact, not h_eff: (mu/h I - J)^{-1} = h M_r^{-1} holds for
-                # the h the carried factors were BUILT with (h_fact == h_eff
-                # whenever factors are fresh or reuse is off).
+                defect = [f0[i] + float(ea[0]) * z[i] + float(ea[1]) * z[n_eq + i]
+                          + float(ea[2]) * z[2 * n_eq + i] for i in range(n_eq)]
                 e_vecs = [h_fact * v for v in real_solve(defect)]
                 for i in range(n_eq):
-                    err = jnp.maximum(err, jnp.abs(e_vecs[i] / tol_i[i]))
-                # Rejected-step correction (mirror of solver/radau.py): when
-                # a previous attempt at this t already rejected and the raw
-                # estimate still reads > 1, re-evaluate the defect's f at
-                # the PERTURBED state y + e — the raw estimate overshoots
-                # by O(h*lambda) on stiff components.  Tile-gated: the
-                # extra RHS eval + triangular solves run only on
-                # iterations where some lane is on a rejection streak with
-                # err > 1 (~8% of attempts at the operating point).
-                was_rej_i = b2i(c.reject > 0)
-                lane_retry = act_i * b2i(err > 1.0) * was_rej_i
+                    err = nan_max(err, jnp.abs(e_vecs[i] / tol_i[i]))
+                # Rejected-step correction (mirror of solver/radau.py):
+                # re-evaluate the defect's f at y + e on lanes with a
+                # rejection streak whose raw estimate still reads > 1.
+                lane_retry = act & (err > 1.0) & (c.reject > 0)
 
-                def _with_retry(err_in):
+                def with_retry(err_in):
                     y_p = tuple(y[i] + e_vecs[i] for i in range(n_eq))
                     f_p = rhs(t, y_p, f_vals)
                     b2 = [f_p[i] + defect[i] - f0[i] for i in range(n_eq)]
                     e2 = [h_fact * v for v in real_solve(b2)]
-                    err2 = jnp.zeros(shp, dtype)
+                    err2 = zf
                     for i in range(n_eq):
-                        err2 = jnp.maximum(err2, jnp.abs(e2[i] / tol_i[i]))
-                    return jnp.where(lane_retry > 0, err2, err_in)
+                        err2 = nan_max(err2, jnp.abs(e2[i] / tol_i[i]))
+                    return jnp.where(lane_retry, err2, err_in)
 
                 err = lax.cond(
-                    jnp.max(lane_retry) > 0, _with_retry, lambda e_in: e_in, err
+                    jnp.max(lane_retry.astype(i32)) > 0, with_retry, lambda e: e, err
                 )
             else:
-                err_c = [jnp.zeros(shp, dtype) for _ in range(n_eq)]
-                for s in range(3):
-                    for i in range(n_eq):
-                        err_c[i] = err_c[i] + (h_eff * float(re[s])) * z[s * n_eq + i]
                 for i in range(n_eq):
-                    err = jnp.maximum(err, jnp.abs(err_c[i] / tol_i[i]))
-
-            if cfg.newton_reject_unconverged:
-                # Honest rejection (RADAU5; mirrors solver/radau.py): a lane
-                # whose Newton sweeps did NOT converge has a meaningless Z —
-                # its embedded error estimate can pass the accept test with
-                # arbitrarily wrong states.  Reject it with h/2 regardless
-                # of err.
-                newt_fail_i = 1 - conv_i  # inactive lanes start converged
-            else:
-                newt_fail_i = vzi
-            accept_i = act_i * b2i(err <= 1.0) * (1 - newt_fail_i)
-            rejected_i = act_i * (1 - accept_i)
-
-            # Kahan sum computed BEFORE the dense fill and used as its upper
-            # bound (see rk45_pallas: filling to t + h_eff while committing
-            # t + (h_eff - t_c) leaves a ~1-ulp never-filled query gap).
-            kh = h_eff - c.t_c
-            ks_sum = t + kh
-
-            # ---- dense output (collocation interpolant on Z) ----
-            if q_total > 0:
-                t1 = ks_sum
-                big = jnp.asarray(2.0 * abs(tf) + 1e30, dtype)
-                min_t = jnp.min(jnp.where(act_i > 0, t, big))
-                max_t1 = jnp.max(
-                    jnp.where(accept_i > 0, t1, jnp.asarray(t0 - 1.0, dtype))
-                )
-                q_lo = jnp.sum((qt2 < min_t).astype(i32))
-                q_hi = jnp.sum((qt2 <= max_t1).astype(i32))
-
-                qm = [[jnp.zeros(shp, dtype) for _ in range(n_eq)] for _ in range(3)]
-                for m in range(3):
+                    err_c = zf
                     for s in range(3):
-                        w = float(rw[s, m])
-                        for i in range(n_eq):
-                            qm[m][i] = qm[m][i] + w * z[s * n_eq + i]
+                        err_c = err_c + (h_eff * float(re[s])) * z[s * n_eq + i]
+                    err = nan_max(err, jnp.abs(err_c / tol_i[i]))
 
-                def fill(qi, _):
-                    tq = qt_smem[0, qi]
-                    pred_i = accept_i * b2i(tq > t) * b2i(tq <= t1)
-                    pred = pred_i > 0
-                    theta = jnp.where(pred, (tq - t) / h_eff, 0.0)
+            # Honest rejection (RADAU5): an unconverged Newton has a
+            # meaningless Z, whatever its error estimate says.
+            newt_fail = ~conv if cfg.newton_reject_unconverged else zi > 0
+            accept = act & (err <= 1.0) & ~newt_fail
+            rejected = act & ~accept
+
+            kh = h_eff - c.t_c
+            t1 = t + kh
+
+            nq, nqt = c.nq, c.nqt
+            if q_total > 0:
+                def interp(theta):
                     th2 = theta * theta
-                    for ci in range(n_eq):
-                        poly = qm[0][ci] * theta + qm[1][ci] * th2 + qm[2][ci] * th2 * theta
-                        yd = y[ci] + h_eff * poly
-                        dense_ref[qi, ci] = jnp.where(pred, yd, dense_ref[qi, ci])
-                    return 0
+                    out = []
+                    for i in range(n_eq):
+                        qm = [zf, zf, zf]
+                        for m in range(3):
+                            for s in range(3):
+                                qm[m] = qm[m] + float(rw[s, m]) * z[s * n_eq + i]
+                        out.append(y[i] + h_eff * (qm[0] * theta + qm[1] * th2
+                                                   + qm[2] * th2 * theta))
+                    return out
 
-                lax.fori_loop(q_lo, q_hi, fill, 0)
+                nq, nqt = fill_dense(
+                    dense_ref, qt_ref, lanes, q_total, n_eq, accept, t, t1,
+                    h_eff, nq, nqt, interp,
+                )
 
             if radau5_err:
                 # Newton-effort-aware safety (RADAU5; mirror of
-                # solver/radau.py): a lane that worked Newton hard gets less
-                # growth headroom, keeping h clear of the convergence
-                # boundary.
+                # solver/radau.py).
                 m_it = float(cfg.newton_max_iter)
                 safety = cfg.safety * (2.0 * m_it + 1.0) / (
-                    2.0 * m_it + n_swp_step.astype(dtype)
+                    2.0 * m_it + n_swp_step.astype(jnp.float32)
                 )
             else:
                 safety = cfg.safety
             raw_fac = safety * (1.0 / (err + 1e-16)) ** expo
             fac_acc = jnp.clip(raw_fac, cfg.min_scale, cfg.max_scale)
-            fac_rej = jnp.where(
-                jnp.isnan(raw_fac), cfg.nan_shrink, jnp.minimum(raw_fac, 1.0)
-            )
+            fac_rej = jnp.where(jnp.isnan(raw_fac), cfg.nan_shrink, jnp.minimum(raw_fac, 1.0))
             fac_rej = jnp.clip(fac_rej, cfg.min_scale, cfg.max_scale)
             if cfg.newton_reject_unconverged:
-                # Newton failure says nothing about the error — halve.
-                fac_rej = jnp.where(newt_fail_i > 0, 0.5, fac_rej)
-            h_new = h_eff * jnp.where(accept_i > 0, fac_acc, fac_rej)
+                fac_rej = jnp.where(newt_fail, 0.5, fac_rej)
+            h_new = h_eff * jnp.where(accept, fac_acc, fac_rej)
             if cfg.radau_h_freeze_hi > 1.0:
                 # RADAU5's step freeze (mirror of solver/radau.py).
-                freeze_i = (
-                    accept_i
-                    * b2i(fac_acc >= 1.0)
-                    * b2i(fac_acc <= cfg.radau_h_freeze_hi)
-                )
-                h_new = jnp.where(freeze_i > 0, h_eff, h_new)
+                freeze = accept & (fac_acc >= 1.0) & (fac_acc <= cfg.radau_h_freeze_hi)
+                h_new = jnp.where(freeze, h_eff, h_new)
 
             if cfg.radau_factor_reuse:
-                # Next-attempt refresh votes (per lane; the gate is the
-                # tile-wide max): slow Newton contraction (RADAU5's theta
-                # test by sweep-count proxy — sweeps beyond the unroll depth
-                # are the first work staleness actually costs) or outright
-                # Newton failure.  The h-divergence band is checked at the
-                # START of the next attempt against its post-cap h_eff.
-                stale_i = (
-                    b2i(n_swp_step >= cfg.radau_refresh_sweeps) + newt_fail_i
-                )
-                refresh_new = jnp.where(
-                    act_i > 0, jnp.minimum(stale_i, 1), c.refresh
-                )
-                n_fct_new = c.n_fct + act_i * refresh_now
+                stale = (n_swp_step >= cfg.radau_refresh_sweeps) | newt_fail
+                refresh_new = jnp.where(act, stale.astype(i32), c.refresh)
+                n_fct_new = c.n_fct + act.astype(i32) * refresh_now
             else:
                 refresh_new = c.refresh
-                n_fct_new = c.n_fct + act_i
+                n_fct_new = c.n_fct + act.astype(i32)
 
-            reject_new = jnp.where(accept_i > 0, 0, c.reject + 1)
-            failed_new = jnp.maximum(
-                c.failed, rejected_i * b2i(reject_new > cfg.radau_max_rejects)
-            )
-
-            tc_new = jnp.where(accept_i > 0, (ks_sum - t) - kh, c.t_c)
-            t_new = jnp.where(accept_i > 0, ks_sum, t)
-            n_att_new = c.n_att + act_i
-            still_i = (
-                b2i(t_new < tf_s) * b2i(failed_new == 0) * b2i(n_att_new < cfg.max_steps)
-            )
+            reject_new = jnp.where(accept, 0, c.reject + 1)
+            failed_new = c.failed | (rejected & (reject_new > cfg.radau_max_rejects))
+            t_new = jnp.where(accept, t1, t)
+            n_att_new = c.n_att + act.astype(i32)
+            still = (t_new < tf) & ~failed_new & (n_att_new < cfg.max_steps)
             if cfg.radau_predictor:
-                zbad = vzi
-                for a in range(n_stack):
-                    zbad = jnp.maximum(zbad, 1 - b2i(jnp.isfinite(z[a])))
                 # Only a CONVERGED, finite Newton solution may seed the next
-                # attempt's predictor (RADAU5 semantics; mirror of
-                # solver/radau.py): an unconverged z poisons the start and
-                # the poisoning self-sustains.
-                have_new = jnp.minimum(conv_i, 1) * (1 - zbad)
+                # attempt's predictor (RADAU5 semantics).
+                finite = conv
+                for a in range(n_stack):
+                    finite = finite & jnp.isfinite(z[a])
                 pred_new = (
-                    jnp.where(act_i > 0, h_eff, c.pred[0]),
-                    jnp.where(accept_i > 0, 1.0, jnp.where(act_i > 0, 0.0, c.pred[1])),
-                    jnp.where(act_i > 0, have_new, c.pred[2]),
-                ) + tuple(
-                    jnp.where(act_i > 0, z[a], c.pred[3 + a])
-                    for a in range(n_stack)
-                )
+                    jnp.where(act, h_eff, c.pred[0]),
+                    jnp.where(accept, 1.0, jnp.where(act, 0.0, c.pred[1])),
+                    jnp.where(act, finite, c.pred[2]),
+                ) + tuple(jnp.where(act, z[a], c.pred[3 + a]) for a in range(n_stack))
             else:
                 pred_new = ()
             return _Carry(
-                alive=jnp.max(still_i),
+                alive=jnp.max(still.astype(i32)),
                 t=t_new,
-                t_c=tc_new,
-                h=jnp.where(act_i > 0, h_new, c.h),
-                y=tuple(
-                    jnp.where(accept_i > 0, y_out[i], y[i]) for i in range(n_eq)
-                ),
-                reject=jnp.where(act_i > 0, reject_new, c.reject),
+                t_c=jnp.where(accept, (t1 - t) - kh, c.t_c),
+                h=jnp.where(act, h_new, c.h),
+                y=tuple(jnp.where(accept, y_out[i], y[i]) for i in range(n_eq)),
+                reject=jnp.where(act, reject_new, c.reject),
                 failed=failed_new,
-                n_acc=c.n_acc + accept_i,
-                n_rej=c.n_rej + rejected_i,
+                n_acc=c.n_acc + accept.astype(i32),
+                n_rej=c.n_rej + rejected.astype(i32),
                 n_att=n_att_new,
                 n_swp=c.n_swp + n_swp_step,
                 n_fct=n_fct_new,
+                nq=nq,
+                nqt=nqt,
+                fact=fact if cfg.radau_factor_reuse else (),
                 refresh=refresh_new,
                 pred=pred_new,
             )
 
-        out = lax.while_loop(cond, body, carry0)
+        out = lax.while_loop(lambda c: c.alive > 0, body, carry0)
 
-        completed = out.t >= tf_s
-        nan = jnp.asarray(jnp.nan, dtype)
-        for ci in range(n_eq):
-            yf_ref[ci] = jnp.where(completed, out.y[ci], nan)
-        failed_ref[0] = jnp.maximum(out.failed, (~completed).astype(i32))
-        stats_ref[0] = out.n_acc
-        stats_ref[1] = out.n_rej
-        stats_ref[2] = out.n_att
-        stats_ref[3] = out.n_swp
-        stats_ref[4] = out.n_fct
-        hout_ref[0] = out.h
+        completed = out.t >= tf
+        for i in range(n_eq):
+            yf_ref[i, sl] = jnp.where(completed, out.y[i], jnp.nan)
+        failed_ref[sl] = (out.failed | ~completed).astype(i32)
+        stats_ref[0, sl] = out.n_acc
+        stats_ref[1, sl] = out.n_rej
+        stats_ref[2, sl] = out.n_att
+        stats_ref[3, sl] = out.n_swp
+        stats_ref[4, sl] = out.n_fct
 
     return kernel
 
@@ -872,31 +545,19 @@ def radau_solve_pallas(
     from tiger_tpu.solver.controller import initial_step
 
     y0 = jnp.asarray(y0, jnp.float32)
-    s_count, _ = y0.shape
+    s_count = y0.shape[0]
     if h0 is None:
         h0 = initial_step(model, y0, t0, params, forcings, config)
     h0 = jnp.broadcast_to(jnp.asarray(h0, jnp.float32), (s_count,))
-    if getattr(model, "approx_trig", None) is False and not interpret:
-        import dataclasses as _dc
-
-        model = _dc.replace(model, approx_trig=True)
     param_fields = tuple(sorted(params.keys())) if params is not None else ()
-    meta = forcings.meta if forcings is not None else None
-    forc_data = None if forcings is None else forcings.data
-    # Same duplicate-query contract as the RK45 kernel (rk45_pallas.
-    # dedup_queries): duplicates collapse before the pipeline and the dense
-    # rows re-expand after, identically on every planner decision.
-    from tiger_tpu.kernels.rk45_pallas import dedup_queries
-
-    qt, q_inverse = dedup_queries(query_times, jnp.float32)
-    res = _pipeline(
-        model, y0, h0, params, forc_data, qt,
-        float(t0), float(tf), meta, config, param_fields, bool(interpret),
+    return _pipeline(
+        model, y0, h0, params,
+        None if forcings is None else forcings.data,
+        check_sorted_queries(query_times, jnp.float32),
+        float(t0), float(tf), None if forcings is None else forcings.meta,
+        config, param_fields, bool(interpret),
         jnp.asarray(t_shift, jnp.float32),
     )
-    if q_inverse is not None:
-        res = res._replace(dense=res.dense[:, q_inverse, :])
-    return res
 
 
 @functools.partial(
@@ -908,167 +569,49 @@ def _pipeline(
     t0, tf, meta, config, param_fields, interpret,
     t_shift=0.0,
 ):
-    # See rk45_pallas._pallas_pipeline: the flip must live in the pipeline,
-    # which direct (non-wrapper) callers reach.
-    if not interpret and getattr(model, "approx_trig", None) is False:
-        import dataclasses as _dc
-
-        model = _dc.replace(model, approx_trig=True)
     s_count, n_eq = y0.shape
     q_total = 0 if query_times is None else query_times.shape[0]
-    t_forc = 1 if forc_data is None else forc_data.shape[0]
-    n_par = max(len(param_fields), 1)
-    tile_rows, q_chunk = _plan_tiles(s_count, q_total, n_eq, t_forc, n_par)
-    tile = tile_rows * LANES
-    s_pad = ((s_count + tile - 1) // tile) * tile
-    n_tiles = s_pad // tile
-
-    def pad_tail(a, axis):
-        pad_n = s_pad - s_count
-        if pad_n == 0:
-            return a
-        idx = jnp.zeros((pad_n,), jnp.int32)
-        return jnp.concatenate([a, jnp.take(a, idx, axis=axis)], axis=axis)
-
-    r_total = s_pad // LANES
-    y0_m = pad_tail(y0.T, 1).reshape(n_eq, r_total, LANES)
-    h0_m = pad_tail(h0[None, :], 1).reshape(1, r_total, LANES)
+    s_pad = -(-s_count // BLOCK) * BLOCK
+    f32 = jnp.float32
+    y0_m = pad_lanes(y0.T, s_pad, 1)
+    h0_m = pad_lanes(h0, s_pad, 0)
     if params is not None:
-        p_stack = jnp.stack([jnp.asarray(params[k], jnp.float32) for k in param_fields])
-        p_m = pad_tail(p_stack, 1).reshape(len(param_fields), r_total, LANES)
+        p_m = pad_lanes(
+            jnp.stack([jnp.asarray(params[k], f32) for k in param_fields]), s_pad, 1
+        )
     else:
-        p_m = jnp.zeros((1, r_total, LANES), jnp.float32)
-    if forc_data is not None:
-        f_m = pad_tail(forc_data, 1).reshape(-1, r_total, LANES)
-    else:
-        f_m = jnp.zeros((1, r_total, LANES), jnp.float32)
-    qp = max(q_total, 1) if q_chunk is None else q_chunk
-    kernel = _make_kernel(
-        model, param_fields, meta, t0, tf, n_eq,
-        q_total if q_chunk is None else q_chunk, config, interpret=interpret,
-    )
-    row_map = lambda i: (0, i, 0)
-    in_specs = [
-        pl.BlockSpec((1, 3), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        pl.BlockSpec((1, qp), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        pl.BlockSpec((1, qp), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((n_eq, tile_rows, LANES), row_map, memory_space=pltpu.VMEM),
-        pl.BlockSpec((2, tile_rows, LANES), row_map, memory_space=pltpu.VMEM),
-        pl.BlockSpec((p_m.shape[0], tile_rows, LANES), row_map, memory_space=pltpu.VMEM),
-        pl.BlockSpec((f_m.shape[0], tile_rows, LANES), row_map, memory_space=pltpu.VMEM),
-    ]
-    out_specs = [
-        pl.BlockSpec((n_eq, tile_rows, LANES), row_map, memory_space=pltpu.VMEM),
-        pl.BlockSpec(
-            (qp, n_eq, tile_rows, LANES), lambda i: (0, 0, i, 0), memory_space=pltpu.VMEM
-        ),
-        pl.BlockSpec((1, tile_rows, LANES), row_map, memory_space=pltpu.VMEM),
-        pl.BlockSpec((5, tile_rows, LANES), row_map, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, tile_rows, LANES), row_map, memory_space=pltpu.VMEM),
-    ]
+        p_m = jnp.zeros((1, s_pad), f32)
+    f_m = pad_lanes(forc_data.astype(f32), s_pad, 1) if forc_data is not None \
+        else jnp.zeros((1, s_pad), f32)
+    qt_m = query_times if q_total > 0 else jnp.zeros((1,), f32)
+
     out_shape = [
-        jax.ShapeDtypeStruct((n_eq, r_total, LANES), jnp.float32),
-        jax.ShapeDtypeStruct((qp, n_eq, r_total, LANES), jnp.float32),
-        jax.ShapeDtypeStruct((1, r_total, LANES), jnp.int32),
-        jax.ShapeDtypeStruct((5, r_total, LANES), jnp.int32),
-        jax.ShapeDtypeStruct((1, r_total, LANES), jnp.float32),
+        jax.ShapeDtypeStruct((n_eq, s_pad), f32),
+        jax.ShapeDtypeStruct((s_pad,), jnp.int32),
+        jax.ShapeDtypeStruct((5, s_pad), jnp.int32),
     ]
-
-    scratch_shapes = []
-    if config.radau_factor_reuse:
-        # Eigenbasis factor block (see kernel): persists across the while
-        # loop's iterations within one grid step; re-stored at each tile's
-        # first attempt, so cross-tile garbage is never read.
-        scratch_shapes = [
-            pltpu.VMEM(
-                (1 + 3 * n_eq * n_eq + 3 * n_eq, tile_rows, LANES), jnp.float32
-            )
-        ]
-    call = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=in_specs,
-        out_specs=out_specs,
+    if q_total > 0:
+        out_shape.append(jax.ShapeDtypeStruct((q_total * n_eq, s_pad), f32))
+    outs = pl.pallas_call(
+        _make_kernel(model, param_fields, meta, t0, tf, n_eq, q_total, BLOCK, config),
+        grid=(s_pad // BLOCK,),
         out_shape=out_shape,
-        scratch_shapes=scratch_shapes,
+        backend="triton",
+        compiler_params=compiler_params(BLOCK),
         interpret=interpret,
-    )
-
-    if q_chunk is None:
-        qt_m = jnp.zeros((1, qp), jnp.float32)
-        if q_total > 0:
-            qt_m = query_times[None, :]
-        bounds = jnp.stack(
-            [jnp.full((), t0, jnp.float32), jnp.full((), tf, jnp.float32),
-             jnp.asarray(t_shift, jnp.float32)]
-        )[None, :]
-        h_pair = jnp.concatenate([h0_m, h0_m], axis=0)
-        yf, dense, failed, stats, _ = call(bounds, qt_m, qt_m, y0_m, h_pair, p_m, f_m)
+        name="radau_dense",
+    )(jnp.reshape(jnp.asarray(t_shift, f32), (1,)), qt_m, y0_m, h0_m, p_m, f_m)
+    yf, failed, stats = outs[:3]
+    if q_total > 0:
+        dense = outs[3].reshape(q_total, n_eq, s_pad)[:, :, :s_count]
+        dense = dense.transpose(2, 0, 1)
     else:
-        # ---- query-windowed multi-call: scan windows, carry (y, h) ----
-        # Same scheme as rk45_pallas: window i covers queries
-        # [i*Qc, (i+1)*Qc) over (prev last query, own last query]; forcing
-        # gathers use ABSOLUTE time, only the dense buffer is windowed.
-        # Failed lanes write NaN y_final per window, so failure propagates
-        # through the remaining windows' carries exactly as the unwindowed
-        # kernel's final state would.
-        n_w = -(-q_total // q_chunk)
-        pad_q = n_w * q_chunk - q_total
-        qt_flat = jnp.concatenate(
-            [query_times, jnp.full((pad_q,), tf + 1.0 + abs(tf - t0), jnp.float32)]
-        )
-        idxs = jnp.arange(n_w)
-        # Clamped to [t0, tf]: see rk45_pallas (queries beyond tf must not
-        # extend the integration span).
-        starts = jnp.clip(
-            jnp.where(idxs == 0, t0, qt_flat[jnp.maximum(idxs * q_chunk - 1, 0)]),
-            t0, tf,
-        )
-        ends = jnp.clip(
-            jnp.where(idxs == n_w - 1, tf, qt_flat[(idxs + 1) * q_chunk - 1]),
-            t0, tf,
-        )
-        shifts = jnp.full((n_w,), jnp.asarray(t_shift, jnp.float32))
-        bounds_seq = jnp.stack([starts, ends, shifts], axis=1).astype(jnp.float32)
-        qt_chunks = qt_flat.reshape(n_w, 1, q_chunk)
-
-        def wbody(carry, xs):
-            y_in, h_in, failed_acc, stats_acc = carry
-            qt_c, bnds = xs
-            yf_w, dense_w, failed_w, stats_w, h_out = call(
-                bnds[None], qt_c, qt_c, y_in,
-                jnp.concatenate([h0_m, h_in], axis=0), p_m, f_m,
-            )
-            carry = (
-                yf_w,
-                h_out,
-                jnp.maximum(failed_acc, failed_w),
-                stats_acc + stats_w,
-            )
-            return carry, dense_w
-
-        init = (
-            y0_m,
-            h0_m,
-            jnp.zeros((1, r_total, LANES), jnp.int32),
-            jnp.zeros((5, r_total, LANES), jnp.int32),
-        )
-        (yf, _, failed, stats), dense_seq = lax.scan(
-            wbody, init, (qt_chunks, bounds_seq)
-        )
-        dense = dense_seq.reshape(n_w * q_chunk, n_eq, r_total, LANES)
-        qp = n_w * q_chunk
-
-    yf = yf.reshape(n_eq, s_pad).T[:s_count]
-    dense_out = dense.reshape(qp, n_eq, s_pad).transpose(2, 0, 1)[:s_count, :q_total]
-    if q_total == 0:
-        dense_out = dense_out[:, :0, :]
-    failed = failed.reshape(s_pad)[:s_count] > 0
-    stats = stats.reshape(5, s_pad)[:, :s_count]
+        dense = jnp.zeros((s_count, 0, n_eq), f32)
+    stats = stats[:, :s_count]
     return RadauResult(
-        y_final=yf,
-        dense=dense_out,
-        failed=failed,
+        y_final=yf[:, :s_count].T,
+        dense=dense,
+        failed=failed[:s_count] > 0,
         stats=RadauStats(
             n_accepted=stats[0], n_rejected=stats[1], n_attempts=stats[2],
             n_newton=stats[3], n_fact=stats[4],

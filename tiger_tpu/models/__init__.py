@@ -1,6 +1,6 @@
 """Physics models (DummyModel, Model204) and the uid -> model registry.
 
-TPU-native equivalent of the reference model registry
+Equivalent of the reference model registry
 (src/model_registry.{hpp,cpp}): instead of cudaMemcpyToSymbol-ing a Parameters
 struct into constant memory, models are plain frozen dataclasses closed over by
 the jitted solver, and solver tolerances travel as a SolverConfig.

@@ -9,7 +9,7 @@ exposing:
   - ``rhs(t, y, params, forcings)``: the pure, per-system right-hand side,
     written in jnp so it is jit/vmap/grad-compatible.  ``y`` is a length-N_EQ
     vector for ONE system; the solver vmaps it over the batch, so every scalar
-    op here becomes a [S]-wide VPU op on TPU.
+    op here becomes an [S]-wide vector op.
 
 ``params`` is a dict of per-system scalars (a row of the SpatialParams SoA; see
 tiger_tpu.params) or ``None`` for models without spatial parameters.

@@ -30,8 +30,8 @@ class DummyModel:
     def rhs_tuple(self, t, y, params=None, forcings=None) -> tuple:
         """Unstacked RHS: ``y`` is any indexable of N_EQ component arrays.
 
-        The Pallas kernel calls this with tuples of (sublane, lane) blocks —
-        Mosaic strongly prefers 2-D vectors, so no stacking happens here.
+        The fused kernels call this with tuples of per-lane blocks, so no
+        stacking happens here.
         """
         H0, H1, H2, H3, H4 = y[0], y[1], y[2], y[3], y[4]
         dH0 = 1.0 - 0.5 * H0

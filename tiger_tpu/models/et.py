@@ -17,7 +17,6 @@ def hamon_pet(
     temperature: jax.Array,
     latitude: jax.Array,
     doy: jax.Array,
-    approx_trig: bool = False,
     sin_lat: jax.Array | None = None,
     cos_lat: jax.Array | None = None,
 ) -> jax.Array:
@@ -25,27 +24,17 @@ def hamon_pet(
 
     CBM daylight model; reference src/models/ETmethods.cpp:11-42.
     ``temperature`` in degC, ``latitude`` in degrees, ``doy`` day-of-year.
-    ``approx_trig`` swaps the inverse-trig for Mosaic-lowerable polynomial
-    versions (tiger_tpu.models.mosaic_math) — required inside Pallas kernels,
-    accurate past float32 resolution.
     """
-    if approx_trig:
-        from tiger_tpu.models import mosaic_math as mm
-
-        arctan_f, arcsin_f, arccos_f, tan_f = mm.atan, mm.asin, mm.acos, mm.tan
-    else:
-        arctan_f, arcsin_f, arccos_f, tan_f = jnp.arctan, jnp.arcsin, jnp.arccos, jnp.tan
-
     # Saturation vapor pressure (mb) and saturated vapor density (g/m^3)
     esat = 6.108 * jnp.exp((17.26939 * temperature) / (temperature + 237.3))
     wt = 216.7 * esat / (temperature + 273.3)
 
     # Daylight fraction (units of 12 h) via the CBM model
-    theta = 0.2163108 + 2.0 * arctan_f(0.9671396 * tan_f(0.00860 * (doy - 186.0)))
-    phi = arcsin_f(0.39795 * jnp.cos(theta))
+    theta = 0.2163108 + 2.0 * jnp.arctan(0.9671396 * jnp.tan(0.00860 * (doy - 186.0)))
+    phi = jnp.arcsin(0.39795 * jnp.cos(theta))
     pi = jnp.pi
     # Callers on a hot path pass precomputed sin/cos of latitude (it is
-    # loop-invariant; the trig costs dozens of VPU slots per eval).
+    # loop-invariant; the trig costs dozens of operations per eval).
     if sin_lat is None:
         sin_lat = jnp.sin(latitude * pi / 180.0)
     if cos_lat is None:
@@ -53,7 +42,7 @@ def hamon_pet(
     num = jnp.sin(0.8333 * pi / 180.0) + sin_lat * jnp.sin(phi)
     den = cos_lat * jnp.cos(phi)
     arg = num / den
-    d = (24.0 - (24.0 / pi) * arccos_f(jnp.clip(arg, -1.0, 1.0) if approx_trig else arg)) / 12.0
+    d = (24.0 - (24.0 / pi) * jnp.arccos(arg)) / 12.0
 
     # Arctic handling: acos argument out of [-1,1] => polar day or night.
     # (The reference checks isnan(D) post-hoc; branchless equivalent.)

@@ -33,10 +33,6 @@ class Model200:
     UID: int = 200
 
     safe_pow: bool = True
-    # Polynomial inverse-trig for the Hamon daylight model — Mosaic (Pallas
-    # TPU) has no atan/asin/acos lowering; the kernel wrapper switches this
-    # on automatically (see rk45_solve_pallas).
-    approx_trig: bool = False
     # Day-of-year at t=0.  The reference hard-codes doy = 1 + t/1440
     # (model_204.hpp:84), correct only for Jan-1 starts; the config schema
     # says "doy is computed internally from time.start and t"
@@ -86,7 +82,7 @@ class Model200:
         x2 = jnp.maximum(0.0, x1 + h_stat - P["Hu"])
         d1 = x1 - x2
         pet = hamon_pet(
-            temperature, P["lat"], doy, approx_trig=self.approx_trig,
+            temperature, P["lat"], doy,
             sin_lat=P.get("_sin_lat"), cos_lat=P.get("_cos_lat"),
         )  # [m/min]
         e_max = jnp.minimum(pet, h_stat)

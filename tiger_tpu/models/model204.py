@@ -33,10 +33,7 @@ def _pow23(x):
     """x**(2/3) for clamped x >= 0: exp2((2/3)*log2(max(x, 1e-30))).
 
     Skips ``jnp.power``'s generic edge-case handling (negative-base/NaN
-    selects): measured +6% whole-kernel throughput on a v5e (484 -> 513M
-    system-steps/s; a bit-hack Newton cube root with no transcendentals at
-    all measured SLOWER, 439M — the VPU's exp2/log2 beat 19 dependent cheap
-    ops).  x=0 maps to ~1e-20, absorbed by the min(1, .) that follows in the
+    selects), which the RHS pays 7x per attempted step.  x=0 maps to ~1e-20, absorbed by the min(1, .) that follows in the
     Manning term; max f32 relative error 1.4e-6 vs pow's 4.4e-7, both below
     the production path's f32 working precision.  The parity path
     (safe_pow=False) keeps jnp.power for its NaN-on-negative semantics.
@@ -84,7 +81,7 @@ class Model204:
 
         The reference recomputes ``(1/n_mann)*sqrt(slope)``, the ``/Hu`` and
         ``/alpha`` divisions etc. on EVERY rhs call (model_204.hpp:98-113) —
-        7 evals per attempted step; divides and sqrt are the expensive VPU
+        7 evals per attempted step; divides and sqrt are the expensive
         ops.  Solvers call this once per solve/kernel invocation; rhs_tuple
         uses the precomputed keys when present and falls back to raw math
         otherwise (so direct RHS calls and oracle tests are unchanged).

@@ -1,6 +1,6 @@
 // tiger_tpu native data path: fast CSV column parser + forcing remap gather.
 //
-// TPU-native equivalent of the reference's host-side I/O hot spots:
+// Native equivalent of the reference's host-side I/O hot spots:
 //   - loadSpatialParams' per-cell std::stod/istringstream parsing
 //     (reference src/I_O/parameters_loader.cpp:62-105) -> single-pass strtod
 //     over a mmap-style buffer, ~50x faster at 1M rows;

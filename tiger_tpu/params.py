@@ -1,7 +1,7 @@
 """Spatial parameters: SoA loader for the per-link parameter table.
 
 Reference: ``SpatialParams`` struct + header-indexed CSV reader
-(src/I_O/parameters_loader.{hpp,cpp}).  TPU-native representation is a
+(src/I_O/parameters_loader.{hpp,cpp}).  The representation here is a
 structure-of-arrays — a dict of [S] float64/int64 numpy arrays — instead of an
 array of 136-byte structs, so each field lands as one contiguous vector the
 solver can vmap over.

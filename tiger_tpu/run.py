@@ -272,6 +272,7 @@ def run(cfg, devices=None, metrics=None, use_mesh: bool = True, backend: str = "
     return {
         "num_systems": n_sys,
         "n_stiff": res.n_stiff,
+        "n_host": res.n_host,
         "n_failed": int(np.asarray(res.failed).sum()),
         "final_path": final_path,
         "dense_path": dense_path,
@@ -412,11 +413,16 @@ def _run_chunked(
     from tiger_tpu import checkpoint as ckpt
     from tiger_tpu.chunked import netcdf_window_loader, solve_chunked
     from tiger_tpu.config import parse_interval_minutes
-    from tiger_tpu.io import write_final_netcdf
-    from tiger_tpu.io.output import WindowedPackedWriter, WindowedVarWriter
+    from tiger_tpu.io import write_final_csv, write_final_netcdf
+    from tiger_tpu.io.output import (
+        WindowedCSVWriter,
+        WindowedPackedWriter,
+        WindowedVarWriter,
+    )
 
-    if cfg.output.format != "netcdf":
-        raise ValueError("time.chunk_days requires output.format: netcdf")
+    csv = cfg.output.format == "csv"
+    if csv and cfg.output.precision == "i16":
+        raise ValueError("output.precision i16 needs output.format: netcdf")
     if cfg.output.precision == "i16" and cfg.output.i16_ranges is None:
         raise ValueError(
             "output.precision i16 with chunked runs needs DECLARED per-state "
@@ -469,8 +475,9 @@ def _run_chunked(
     prefix = cfg.output.prefix
     outdir = cfg.output.path
     os.makedirs(outdir, exist_ok=True)
-    final_path = os.path.join(outdir, f"final_{prefix}_rank_{proc}.nc")
-    dense_path = os.path.join(outdir, f"dense_{prefix}_rank_{proc}.nc")
+    ext = "csv" if csv else "nc"
+    final_path = os.path.join(outdir, f"final_{prefix}_rank_{proc}.{ext}")
+    dense_path = os.path.join(outdir, f"dense_{prefix}_rank_{proc}.{ext}")
     out_dtype = {None: np.dtype(dtype), "f32": np.float32,
                  "f64": np.float64, "i16": np.int16}[cfg.output.precision]
     if cfg.output.precision == "i16":
@@ -486,7 +493,13 @@ def _run_chunked(
     resume = resume_t is not None
     state_path = os.path.join(outdir, f"state_{prefix}_rank_{proc}.nc")
     with contextlib.ExitStack() as stack, metrics.phase("solve"):
-        if cfg.output.precision == "i16":
+        if csv:
+            dense_w = stack.enter_context(WindowedCSVWriter(
+                dense_path,
+                [f"var{i}_sys{s}" for s in range(len(link_ids)) for i in state_ids],
+                query_times, resume=resume,
+            ))
+        elif cfg.output.precision == "i16":
             dense_w = stack.enter_context(
                 WindowedPackedWriter(
                     dense_path, link_ids, query_times, state_ids,
@@ -506,9 +519,17 @@ def _run_chunked(
             )
         disc_w = None
         if topo is not None or routed_fn is not None:
-            discharge_path = os.path.join(outdir, f"discharge_{prefix}_rank_{proc}.nc")
+            discharge_path = os.path.join(
+                outdir, f"discharge_{prefix}_rank_{proc}.{ext}"
+            )
             disc_w = stack.enter_context(
-                WindowedVarWriter(
+                WindowedCSVWriter(
+                    discharge_path,
+                    [f"discharge_sys{s}" for s in range(len(link_ids))],
+                    query_times, resume=resume,
+                )
+                if csv
+                else WindowedVarWriter(
                     discharge_path, "discharge", link_ids, query_times,
                     compression_level=cfg.output.compression_level,
                     dtype=np.float64,
@@ -573,19 +594,23 @@ def _run_chunked(
 
     with metrics.phase("write_output"):
         y_final = np.asarray(res.y_final)
-        write_final_netcdf(
-            final_path, y_final[:, state_ids], link_ids, state_ids,
-            cfg.output.compression_level,
-            # i16 packs only the (huge) dense record; the final state stays
-            # at solve precision (same rule as the unchunked path).
-            dtype={None: None, "f32": np.float32, "f64": np.float64,
-                   "i16": None}[cfg.output.precision],
-        )
+        if csv:
+            write_final_csv(final_path, y_final[:, state_ids])
+        else:
+            write_final_netcdf(
+                final_path, y_final[:, state_ids], link_ids, state_ids,
+                cfg.output.compression_level,
+                # i16 packs only the (huge) dense record; the final state
+                # stays at solve precision (same rule as the unchunked path).
+                dtype={None: None, "f32": np.float32, "f64": np.float64,
+                       "i16": None}[cfg.output.precision],
+            )
         ckpt.save_state(state_path, y_final, link_ids, tf)
 
     return {
         "num_systems": len(link_ids),
         "n_stiff": res.n_stiff,
+        "n_host": res.n_host,
         "n_failed": int(np.asarray(res.failed).sum()),
         "n_windows": max(1, int(np.ceil((tf - t_start) / chunk_minutes - 1e-9))),
         "final_path": final_path,
@@ -597,7 +622,7 @@ def _run_chunked(
 
 def main(argv: Optional[list] = None) -> int:
     p = argparse.ArgumentParser(
-        prog="tiger-tpu", description="TPU-native Tiger-HLM hydrologic engine"
+        prog="tiger-tpu", description="Tiger-HLM hydrologic engine in JAX"
     )
     p.add_argument("--config", required=True, help="YAML simulation config")
     p.add_argument("--cpu", action="store_true", help="force CPU backend")
@@ -613,7 +638,7 @@ def main(argv: Optional[list] = None) -> int:
         "--backend",
         default="auto",
         choices=["auto", "pallas", "xla"],
-        help="RK45 backend: auto picks the fused Pallas kernel on f32 TPU runs",
+        help="RK45 backend: auto picks the fused GPU kernels on f32 GPU runs",
     )
     args = p.parse_args(argv)
 

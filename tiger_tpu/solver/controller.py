@@ -81,8 +81,7 @@ def initial_step(
 
     ``config.initial_step`` (explicit scalar) wins; otherwise ``h0_mode``
     selects the reference-parity global estimate or the per-system one.
-    Jitted internally (eager dispatch costs several device round trips per
-    call on remote-attached accelerators).
+    Jitted internally (one dispatch instead of several eager ones).
     """
     if config.initial_step is not None:
         return jnp.full((y0.shape[0],), config.initial_step, y0.dtype)

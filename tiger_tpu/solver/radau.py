@@ -281,7 +281,7 @@ def _radau_system(rhs, gather, t0, tf, qt, y0, h0, cfg: SolverConfig,
             #     Z0_i = (1/h) * sum_j A^{-1}[i,j] * (P(theta_j) - y).
             # Round 3 extrapolated the SLOPES directly, which is
             # ill-conditioned for stiff lanes (slope error ~ ||J|| * value
-            # error): attempts blew up ~30x (BENCH_r03).  theta is measured
+            # error): attempts blew up ~30x.  theta is measured
             # in the previous polynomial's coordinates: base 1 after an
             # accept (y = P(1), extrapolation), base 0 after a reject
             # (y = P(0), interpolation inside the failed step).

@@ -1,7 +1,7 @@
 """Stream abstraction: couples a parameter row to an initial state + topology.
 
 Reference: ``Stream<Model>`` (src/stream.hpp:28-51) pairs a SpatialParams row
-with y0 and the downstream link id.  TPU-natively this is a thin batched
+with y0 and the downstream link id.  Here this is a thin batched
 facade over the SoA (one object for the whole basin, not one per link).
 """
 

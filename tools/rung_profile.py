@@ -4,15 +4,12 @@ bench's own stiff subset, isolating each suspected latency contributor.
 The two-phase headline's Radau rung runs ~131 genuinely-stiff lanes padded
 to 256 — tiny parallelism, so the kernel is latency-bound on its per-
 while-iteration dependent chain (FD Jacobian -> 15x15 LU -> Newton sweeps
--> dense fill).  VERDICT r3 measured ~2.2M attempts/s there (~75x below the
-131k-lane micro-bench per-lane rate); this tool breaks the iteration down
-by ablation so optimization effort lands where the time is:
+-> dense fill); this tool breaks the iteration down by ablation so
+optimization effort lands where the time is:
 
     python tools/rung_profile.py                 # full configuration
     python tools/rung_profile.py --no-queries    # drop the dense fill
     python tools/rung_profile.py --no-forcings   # drop the ZOH gather
-    TT_RADAU_UNROLL=4 python tools/rung_profile.py   # Newton tail gating
-    TT_RADAU_TILE_ROWS=8 python tools/rung_profile.py
 
 Prints one JSON line per invocation.  Uses the exact lanes bench.py's
 scenario marks stiff (reference anchor: the subset compaction mirrors
@@ -48,9 +45,8 @@ def main() -> None:
     )
     p.add_argument(
         "--factor-reuse", action="store_true",
-        help="SolverConfig.radau_factor_reuse (opt-in; measured negative, "
-        "DESIGN.md round-5 — this flag exists to re-test on new "
-        "hardware/models)",
+        help="SolverConfig.radau_factor_reuse (opt-in; re-test it here on "
+        "new hardware/models)",
     )
     p.add_argument("--cpu", action="store_true", help="interpreter smoke run")
     args = p.parse_args()
@@ -145,8 +141,6 @@ def main() -> None:
                 "forcings": not args.no_forcings,
                 "predictor": args.predictor,
                 "error_mode": args.error_mode,
-                "unroll_env": os.environ.get("TT_RADAU_UNROLL", ""),
-                "tile_rows_env": os.environ.get("TT_RADAU_TILE_ROWS", ""),
                 "backend": jax.devices()[0].platform,
             }
         )
