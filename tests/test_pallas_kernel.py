@@ -2,10 +2,12 @@
 interpreter; plus the wrapper's padding and dense layout, and the kernels'
 lowering for the GPU.
 
-Same controller logic, but the two programs fuse float ops differently, so a
-lane whose error estimate sits exactly on the accept boundary can diverge by
-a step — step counts are compared within +-2 on <5% of lanes, states to f32
-tolerance.
+The kernel and the vmap path run the same float32 arithmetic in the same
+order, so in the interpreter they agree bit for bit
+(test_kernel_runs_the_vmap_arithmetic); on the GPU, FMA contraction and the
+math library's last bits let a lane whose error estimate sits on the accept
+boundary diverge by a step, which is why the other tests compare step counts
+within a band and states to f32 tolerance.
 """
 
 import numpy as np
@@ -15,7 +17,7 @@ import pytest
 
 from tiger_tpu.forcing import ForcingSet
 from tiger_tpu.kernels.rk45_pallas import BLOCK, rk45_solve_pallas
-from tiger_tpu.models import DummyModel, Model204
+from tiger_tpu.models import DummyModel, Model200, Model204
 from tiger_tpu.solver import SolverConfig, rk45_solve
 
 CFG = SolverConfig(rtol=1e-5, atol=1e-7, max_steps=20_000)
@@ -56,6 +58,38 @@ def test_dummy_matches_vmap_path():
         np.asarray(ker.dense), np.asarray(ref.dense), rtol=2e-5, atol=1e-6
     )
     assert not bool(np.asarray(ker.stiff).any())
+
+
+@pytest.mark.parametrize("forcing", ["steady", "varying"])
+@pytest.mark.parametrize("model", [Model204(), Model200()], ids=["m204", "m200"])
+def test_kernel_runs_the_vmap_arithmetic(model, forcing):
+    """Same stage sums, error norm, stiffness tests, compensated time commit
+    and dense interpolant, in the same order: flags, step counts, states and
+    dense rows agree bit for bit in the interpreter, Model 204's genuinely
+    stiff lanes and hourly-varying forcing included.  Model 200 runs on
+    ordinary lanes: on near-zero-capacity lanes its Hamon terms amplify the
+    last bits of transcendentals that the two programs fuse differently."""
+    from __graft_entry__ import _scenario
+    from chip_smoke import steady
+
+    s_count = 256
+    stiff_frac = 0.01 if isinstance(model, Model204) else 0.0
+    y0, params, forc = _scenario(s_count, jnp.float32, days=1.0, stiff_frac=stiff_frac)
+    if forcing == "steady":
+        forc = steady(forc)
+    qt = jnp.arange(0.0, 1441.0, 60.0, dtype=jnp.float32)
+    h0 = jnp.full((s_count,), 1e-3, jnp.float32)
+    cfg = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=20_000)
+    ref = rk45_solve(model, y0, 0.0, 1440.0, qt, params, forc, h0=h0, config=cfg)
+    ker = rk45_solve_pallas(
+        model, y0, 0.0, 1440.0, qt, params, forc, h0=h0, config=cfg, interpret=True
+    )
+    assert np.asarray(ref.stiff).sum() >= (2 if stiff_frac else 0)
+    for a, b in ((ker.stiff, ref.stiff), (ker.failed, ref.failed),
+                 (ker.stats.n_attempts, ref.stats.n_attempts),
+                 (ker.stats.n_accepted, ref.stats.n_accepted),
+                 (ker.y_final, ref.y_final), (ker.dense, ref.dense)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_model204_with_forcings_matches_vmap_path():

@@ -30,7 +30,11 @@ def hamon_pet(
     wt = 216.7 * esat / (temperature + 273.3)
 
     # Daylight fraction (units of 12 h) via the CBM model
-    theta = 0.2163108 + 2.0 * jnp.arctan(0.9671396 * jnp.tan(0.00860 * (doy - 186.0)))
+    # arctan as atan2(u, 1): on an NVIDIA GPU the fused kernel (Triton,
+    # libdevice) and XLA evaluate atan2 bit for bit alike but arctan
+    # differently (model204._pow23 says why that matters).
+    u = 0.9671396 * jnp.tan(0.00860 * (doy - 186.0))
+    theta = 0.2163108 + 2.0 * jnp.arctan2(u, jnp.ones_like(u))
     phi = jnp.arcsin(0.39795 * jnp.cos(theta))
     pi = jnp.pi
     # Callers on a hot path pass precomputed sin/cos of latitude (it is

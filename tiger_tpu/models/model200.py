@@ -93,8 +93,7 @@ class Model200:
         # 3) Surface store (Manning)
         x3 = jnp.minimum(x2, P["infil"])
         d2 = x2 - x3
-        # Same Manning x^(2/3) as Model 204 (model204._pow23: exp2/log2 on
-        # the clamped base, measured ~6% whole-kernel; keeps routed
+        # Same Manning x^(2/3) as Model 204 (model204._pow23; keeps routed
         # discharge's link_outflow numerically identical to the solver).
         from tiger_tpu.models.model204 import _pow23
 

@@ -40,6 +40,11 @@ from tiger_tpu.solver import tableau
 from tiger_tpu.solver.config import SolverConfig
 from tiger_tpu.solver.rk45 import fill_dense_queries
 
+#: Full-precision contractions: under vmap the small stage products become
+#: batched matrix products, which an NVIDIA GPU otherwise rounds to TF32
+#: (~1e-3 relative; measured on an H100).
+_EXACT = lax.Precision.HIGHEST
+
 
 class RadauStats(NamedTuple):
     n_accepted: jax.Array
@@ -145,7 +150,7 @@ def radau_step(rhs_t, t, y, h, rtol, atol, cfg: SolverConfig, z0=None,
 
     def newton_body(state):
         z, it, _ = state
-        y_stage = y[None, :] + h * (a_mat @ z)  # [3, N]
+        y_stage = y[None, :] + h * jnp.matmul(a_mat, z, precision=_EXACT)  # [3, N]
         ts = t + c_vec * h
         f_st, j_st = jax.vmap(lambda tt, yy: _fd_jacobian_and_f(rhs_t, tt, yy))(ts, y_stage)
         # Block (s, i), (sp, j) of the Newton matrix: delta - h*A[s,sp]*J_s[i,j]
@@ -166,7 +171,7 @@ def radau_step(rhs_t, t, y, h, rtol, atol, cfg: SolverConfig, z0=None,
     )
     converged = done & jnp.isfinite(z).all()
 
-    y_out = y + h * jnp.tensordot(b_vec, z, 1)
+    y_out = y + h * jnp.tensordot(b_vec, z, 1, precision=_EXACT)
     tol = atol + rtol * jnp.maximum(jnp.abs(y), jnp.abs(y_out))
     if cfg.radau_error_mode == "radau5":
         # RADAU5's smoothed estimate (tableau.RADAU_MU_REAL note; SciPy
@@ -178,7 +183,7 @@ def radau_step(rhs_t, t, y, h, rtol, atol, cfg: SolverConfig, z0=None,
         mu = jnp.asarray(tableau.RADAU_MU_REAL, dtype)
         ea_vec = jnp.asarray(tableau.RADAU_ERR_EA, dtype)
         m2 = (mu / h) * jnp.eye(n, dtype=dtype) - j_base
-        defect = f0e + jnp.tensordot(ea_vec, z, 1)
+        defect = f0e + jnp.tensordot(ea_vec, z, 1, precision=_EXACT)
         e = jnp.linalg.solve(m2, defect)
         err = jnp.max(jnp.abs(e / tol))
         if retry_on_reject:
@@ -192,7 +197,7 @@ def radau_step(rhs_t, t, y, h, rtol, atol, cfg: SolverConfig, z0=None,
             err2 = jnp.max(jnp.abs(e2 / tol))
             err = jnp.where((err > 1.0) & was_rejected, err2, err)
     else:
-        y_err = h * jnp.tensordot(e_vec, z, 1)
+        y_err = h * jnp.tensordot(e_vec, z, 1, precision=_EXACT)
         err = jnp.max(jnp.abs(y_err / tol))
     return y_out, err, z, n_newton, converged
 
@@ -200,7 +205,7 @@ def radau_step(rhs_t, t, y, h, rtol, atol, cfg: SolverConfig, z0=None,
 def radau_dense(y, z, h, theta):
     """Collocation dense output: y + h * sum_s I_s(theta) Z_s (see tableau)."""
     w = jnp.asarray(tableau.RADAU_DENSE, y.dtype)  # [3, 3]
-    qm = jnp.tensordot(w.T, z, 1)  # [3, N]; row m multiplies theta^(m+1)
+    qm = jnp.tensordot(w.T, z, 1, precision=_EXACT)  # [3, N]; row m multiplies theta^(m+1)
     th = jnp.asarray(theta)[..., None]
     poly = qm[0] * th + qm[1] * th**2 + qm[2] * th**3
     return y + h * poly
@@ -290,10 +295,10 @@ def _radau_system(rhs, gather, t0, tf, qt, y0, h0, cfg: SolverConfig,
             w = jnp.asarray(tableau.RADAU_DENSE, dtype)  # [3, 3]
             pw = jnp.stack([theta, theta**2, theta**3])  # [m, i]
             pw0 = jnp.stack([c.z_base, c.z_base**2, c.z_base**3])  # [m]
-            i_th = w @ (pw - pw0[:, None])  # [s, i]: I_s(theta_i) - I_s(base)
-            v = c.h_prev * jnp.einsum("si,sn->in", i_th, c.z_prev)  # [i, N]
+            i_th = jnp.matmul(w, pw - pw0[:, None], precision=_EXACT)  # [s, i]: I_s(theta_i) - I_s(base)
+            v = c.h_prev * jnp.einsum("si,sn->in", i_th, c.z_prev, precision=_EXACT)  # [i, N]
             inv_a = jnp.asarray(tableau.RADAU_A_INV, dtype)
-            z_pred = (inv_a @ v) / h_eff  # [3, N]
+            z_pred = jnp.matmul(inv_a, v, precision=_EXACT) / h_eff  # [3, N]
             f0 = rhs_t(c.t, c.y)
             use = c.have_z & (ratio <= 2.0)
             z0 = jnp.where(use, z_pred, jnp.tile(f0, (3, 1)))
